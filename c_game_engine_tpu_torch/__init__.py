@@ -2,13 +2,14 @@
 
 The JAX package `c_game_engine_tpu` stays the reference; this package runs
 the same headless batched tick (`models/sim.py`: `reset_batch` + `rollout`)
-with PyTorch on an NVIDIA H100, its two hot kernels (`ops/capsule_resolve`,
-`ops/ray_tris`) written by hand in CUDA C++ under `csrc/`. The layout and
-module names follow the JAX package so each counterpart is easy to find.
-It never imports jax or c_game_engine_tpu.
+with PyTorch on an NVIDIA H100, its three hot kernels
+(`ops/capsule_resolve`, `ops/ray_tris`, `ops/body_contacts`) written by
+hand in CUDA C++ under `csrc/`. The layout and module names follow the JAX
+package so each counterpart is easy to find. It never imports jax or
+c_game_engine_tpu.
 
 Maps come in as plain numpy/JSON exports of the JAX compiler's output
-(`core/state.py::load_map`; `maps/arena.*` is built by
+(`core/state.py::load_map`; `maps/*` are built by
 `tests/torch_export_map.py`).
 """
 

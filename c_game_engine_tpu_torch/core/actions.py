@@ -36,7 +36,7 @@ class Actions:
     buttons: torch.Tensor  # [..., NUM_BUTTONS] bool
 
     @staticmethod
-    def zeros(batch_shape=(), device="cpu") -> "Actions":
+    def zeros(batch_shape=(), device="cuda") -> "Actions":
         return Actions(
             move=torch.zeros((*batch_shape, 2), dtype=torch.float32, device=device),
             look=torch.zeros((*batch_shape, 2), dtype=torch.float32, device=device),

@@ -170,19 +170,25 @@ class CompiledMap(Struct):
         return np.nonzero(self.cls.cpu().numpy() == int(ActorClass.LASER))[0]
 
     @functools.cached_property
+    def dyn_is_box(self) -> torch.Tensor:
+        """[D] bool per dynamic slot: True where the body's support is the
+        closed-form box (aux['dyn_is_box'], a static tuple in JAX)."""
+        return torch.tensor(self.aux["dyn_is_box"], dtype=torch.bool, device=self.device)
+
+    @functools.cached_property
     def tri16(self) -> torch.Tensor:
-        """[T', 16] kernel triangle table (ax..cz, normal, valid, 3 zero
-        pad) with T' padded to a T_CHUNK multiple — what the JAX package
-        rebuilds per call at physics/batched.py:259-269 and :391-398."""
+        """[T', 16] kernel triangle table (ax..cz, normal, valid, the three
+        active-edge flags AB BC CA) with T' padded to a T_CHUNK multiple —
+        what the JAX package rebuilds per call at physics/batched.py:531-541
+        for the body-contact kernel. The capsule and ray kernels read only
+        columns 0-12 (the JAX package zero-fills 13-15 for them,
+        physics/batched.py:259-269 and :391-398), so one table serves all
+        three."""
         from c_game_engine_tpu_torch.ops.capsule_resolve import T_CHUNK
 
         t = self.tri_soa.shape[1]
         tri16 = torch.cat(
-            [
-                self.tri_soa.T,
-                self.tri_valid[:, None].float(),
-                torch.zeros((t, 3), dtype=torch.float32, device=self.device),
-            ],
+            [self.tri_soa.T, self.tri_valid[:, None].float(), self.tri_edge_active.float()],
             dim=1,
         )
         t_pad = (-t) % T_CHUNK

@@ -23,7 +23,7 @@ from c_game_engine_tpu_torch.actors.handlers import set_col
 from c_game_engine_tpu_torch.assets.kvlist import ParamType
 from c_game_engine_tpu_torch.core.actions import Actions, Button
 from c_game_engine_tpu_torch.core.state import EVENT_CAPACITY, Crosshair, EnvState
-from c_game_engine_tpu_torch.physics import batched
+from c_game_engine_tpu_torch.physics import batched, bodies
 from c_game_engine_tpu_torch.physics import geometry_soa as gsoa
 from c_game_engine_tpu_torch.physics.character import CAPSULE_HALF_HEIGHT, CAPSULE_RADIUS
 from c_game_engine_tpu_torch.utils.mathx import (
@@ -365,7 +365,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
 
     # --------------------------------------------- physics (2 substeps)
     (bpos, bquat, bvel, bomega, bsleep,
-     bwarm_n, bwarm_pair, bwarm_pair_idx) = batched.step_bodies_batched(
+     bwarm_n, bwarm_pair, bwarm_pair_idx) = bodies.step_bodies_batched(
         cmap, state.actors, state.player.pos, state.player.vel, delta / TPS, n_substeps=2
     )
     state = state.replace(

@@ -15,10 +15,13 @@ import torch
 
 def compact_chunk_lists(chunk_bounds, xmin, xmax, zmin, zmax, margin):
     """chunk_bounds [NC, 4] (minx minz maxx maxz); xmin/xmax/zmin/zmax [...]
-    per-query XZ extents; margin a float.
+    per-query XZ extents; margin a float, or a tensor over the leading
+    query axes (e.g. [D] per body for [D, G] queries).
 
     Returns (idx [..., NC] i32, cnt [...] i32)."""
     cb = chunk_bounds
+    if isinstance(margin, torch.Tensor) and margin.ndim:
+        margin = margin.reshape(*margin.shape, *(1,) * (xmin.ndim + 1 - margin.ndim))
     ov = (
         (cb[:, 0] <= xmax[..., None] + margin)
         & (cb[:, 2] >= xmin[..., None] - margin)
@@ -34,11 +37,15 @@ def compact_chunk_lists(chunk_bounds, xmin, xmax, zmin, zmax, margin):
     return idx.to(torch.int32), cnt
 
 
-def block_minmax(comp, blk):
+def block_minmax(comp, blk, mask=None):
     """Per-env-block min/max of a [..., B] component. Returns ([..., G] min,
-    [..., G] max) with G = B // blk."""
+    [..., G] max) with G = B // blk. Lanes where `mask` is False are left
+    out; an all-masked block yields (+inf, -inf), an empty query."""
     g = comp.reshape(*comp.shape[:-1], comp.shape[-1] // blk, blk)
-    return g.amin(dim=-1), g.amax(dim=-1)
+    if mask is None:
+        return g.amin(dim=-1), g.amax(dim=-1)
+    m = mask.reshape(g.shape)
+    return torch.where(m, g, torch.inf).amin(dim=-1), torch.where(m, g, -torch.inf).amax(dim=-1)
 
 
 def gather_listed_chunks(tri16, idx, cnt, t_chunk):

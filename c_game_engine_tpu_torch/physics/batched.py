@@ -7,8 +7,9 @@ The port always runs the kernel formulation the JAX package takes on the
 TPU (`_use_pallas()` true): the character controller resolves through
 kernel K1 (ops/capsule_resolve.py) with one doubled [2B] launch for the
 main and step-up poses, and the static part of every ray goes through
-kernel K2 (ops/ray_tris.py). On a CPU tensor those run as their plain
-PyTorch versions.
+kernel K2 (ops/ray_tris.py). The rigid-body step, with kernel K3
+(ops/body_contacts.py), is physics/bodies.py::step_bodies_batched. On a CPU
+tensor the kernels run as their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -16,13 +17,10 @@ from __future__ import annotations
 import torch
 
 from c_game_engine_tpu_torch.actors.defs import Layer, Motion, Shape
-from c_game_engine_tpu_torch.core.state import PAIR_WARM_CAP
 from c_game_engine_tpu_torch.ops.capsule_resolve import BLK, resolve_capsule
 from c_game_engine_tpu_torch.ops.ray_tris import ray_tris
 from c_game_engine_tpu_torch.physics import geometry_soa as g
 from c_game_engine_tpu_torch.physics.character import STEP_UP, STICK_DOWN
-
-P_CAP = 16  # physics/batched.py:87, the pair table width the warm cache covers
 
 
 def _norm(v):
@@ -30,7 +28,9 @@ def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
-def _solid_mask(cmap, active):
+def solid_mask(cmap, active):
+    """[B, N] actors that collide: active, with a shape, not motion NONE,
+    not a sensor."""
     return (
         active
         & (cmap.shape != int(Shape.EMPTY))
@@ -41,7 +41,7 @@ def _solid_mask(cmap, active):
 
 def _solid_actor_soa(cmap, actors):
     """Per-actor solid-collider comps, [N, B] each (from [B, N])."""
-    solid = _solid_mask(cmap, actors.active)  # [B, N]
+    solid = solid_mask(cmap, actors.active)  # [B, N]
     qx, qy, qz, qw = (actors.quat[..., k].T for k in range(4))  # [N, B]
     scx, scy, scz = (cmap.shape_center[:, k][:, None] for k in range(3))
     ox, oy, oz = g.quat_rotate_soa(qx, qy, qz, qw, scx, scy, scz)
@@ -184,7 +184,7 @@ def cast_rays_batched(
         ox[None], oy[None], oz[None], dx[None], dy[None], dz[None],
         cx_, cy_, cz_, qx, qy, qz, qw, hx, hy, hz, max_dist,
     )
-    solid = actor_comp(_solid_mask(cmap, actors.active))
+    solid = actor_comp(solid_mask(cmap, actors.active))
     req = torch.as_tensor(require_flags, dtype=torch.int32, device=dev)  # [] or [R]
     solid = solid & ((cmap.flags[:, None] & req) == req)
     if exclude is not None:
@@ -200,30 +200,3 @@ def cast_rays_batched(
     hit_any = torch.isfinite(t_best)
     frac = torch.where(hit_any, t_best / max_dist, 1.0).float()
     return hit_any, frac, idx
-
-
-def step_bodies_batched(cmap, actors, player_pos, player_vel, dt, n_substeps: int = 2):
-    """Rigid-body update for maps with no dynamic bodies: kinematic actors
-    integrate their velocity and every other lane passes through, which is
-    what physics/batched.py:459-1808 computes when aux['num_dynamic'] == 0
-    (no dynamic slot is live, so only the idle branch at :1764 runs).
-
-    Returns (pos, quat, vel, omega, sleep, warm_n, warm_pair,
-    warm_pair_idx) like the JAX function."""
-    if cmap.aux.get("num_dynamic", 1) > 0:
-        raise NotImplementedError(
-            "dynamic rigid bodies need the rigid-body solver and its contact "
-            "kernel K3 (ops/body_contacts.py), which a later port step adds"
-        )
-    kinematic = actors.active & (cmap.motion == int(Motion.KINEMATIC))[None, :]
-    k_pos = actors.pos + torch.where(kinematic[..., None], actors.vel * dt, 0.0)
-    # warm caches: the idle branch keeps the first P pair slots and the
-    # writeback pads the rest with (0, -1), P = min(P_CAP, D * N)
-    p = min(P_CAP, cmap.dyn_slots.shape[0] * cmap.num_actors)
-    warm_pair = actors.warm_pair.clone()
-    warm_pair_idx = actors.warm_pair_idx.clone()
-    if p < PAIR_WARM_CAP:
-        warm_pair[:, p:] = 0.0
-        warm_pair_idx[:, p:] = -1
-    return (k_pos, actors.quat, actors.vel, actors.omega, actors.sleep,
-            actors.warm_n, warm_pair, warm_pair_idx)

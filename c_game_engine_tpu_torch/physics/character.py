@@ -8,3 +8,4 @@ CAPSULE_HALF_HEIGHT = 0.25
 MAX_SLOPE_COS = 0.6427876097  # cos(50 deg), PlayerPhysics.c:42 MAX_WALKABLE_SLOPE
 STEP_UP = 0.25  # walkStairsStepUp (PlayerPhysics.c:442)
 STICK_DOWN = 0.25  # stickToFloorStepDown (PlayerPhysics.c:441)
+CHARACTER_MASS = 10.0  # PlayerPhysics.c:184

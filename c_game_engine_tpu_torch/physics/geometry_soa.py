@@ -28,6 +28,15 @@ def cross3(ax, ay, az, bx, by, bz):
     return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
 
 
+def norm3(x, y, z):
+    return torch.sqrt(x * x + y * y + z * z)
+
+
+def normalize3(x, y, z, eps=1e-9):
+    n = _maxs(norm3(x, y, z), eps)
+    return x / n, y / n, z / n, n
+
+
 def closest_point_on_triangle_soa(px, py, pz, ax, ay, az, bx, by, bz, cx, cy, cz):
     """Closest point on triangle (a,b,c) to p (Ericson). Returns (qx, qy, qz)."""
     abx, aby, abz = bx - ax, by - ay, bz - az
@@ -116,6 +125,16 @@ def quat_rotate_inv_soa(qx, qy, qz, qw, vx, vy, vz):
     return quat_rotate_soa(-qx, -qy, -qz, qw, vx, vy, vz)
 
 
+def quat_mul_soa(ax_, ay_, az_, aw_, bx_, by_, bz_, bw_):
+    """Hamilton product a*b, component-wise."""
+    return (
+        aw_ * bx_ + ax_ * bw_ + ay_ * bz_ - az_ * by_,
+        aw_ * by_ - ax_ * bz_ + ay_ * bw_ + az_ * bx_,
+        aw_ * bz_ + ax_ * by_ - ay_ * bx_ + az_ * bw_,
+        aw_ * bw_ - ax_ * bx_ - ay_ * by_ - az_ * bz_,
+    )
+
+
 def closest_point_on_obb_soa(px, py, pz, ox, oy, oz, qx, qy, qz, qw, hx, hy, hz):
     """Closest point on an OBB (center o, quat q, half extents h) to p."""
     lx, ly, lz = quat_rotate_inv_soa(qx, qy, qz, qw, px - ox, py - oy, pz - oz)
@@ -145,3 +164,9 @@ def ray_obb_soa(ox, oy, oz, dx, dy, dz, cx_, cy_, cz_, qx, qy, qz, qw, hx, hy, h
     hit = (tmax >= torch.clamp_min(tmin, 0.0)) & (tmin <= max_t)
     t = torch.clamp_min(tmin, 0.0)
     return hit & (t <= max_t), torch.where(hit, t, torch.inf)
+
+
+def box_support_soa(qx, qy, qz, qw, hx, hy, hz, nx, ny, nz):
+    """Box support extent along direction n: sum_i |h_i * (R_i . n)|."""
+    lx, ly, lz = quat_rotate_inv_soa(qx, qy, qz, qw, nx, ny, nz)
+    return torch.abs(lx) * hx + torch.abs(ly) * hy + torch.abs(lz) * hz

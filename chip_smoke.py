@@ -5,17 +5,22 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit; no CUDA device is a failure;
   2. build the hand-written kernels from c_game_engine_tpu_torch/csrc/
-     with nvcc for sm_90a;
+     with nvcc for sm_90a, one nvcc per source, all at once;
   3. kernel phase: the capsule-resolve (K1) and ray (K2) kernels against
-     their plain PyTorch versions on the card, on the inputs the main path
-     gives them on the arena map (captured from a tick of a 4096-env run);
-  4. a small reference check: 30 ticks at 256 envs on the card against the
-     same ticks run by the plain versions on the CPU;
-  5. main path: load_map(arena) -> reset_batch(4096) -> rollout of 240
-     ticks of the bench.py stream (hold W, look += 0.01), with every
-     kernel's launch counter reset just before and read just after.
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+     their plain PyTorch versions on the card, on the inputs a tick of a
+     4096-env run of the arena map hands them; then the body-contact kernel
+     (K3) likewise on the inputs a 4096-env tick of arena_bodies hands it
+     (every body awake, the hull bodies present);
+  4. reference checks: 30 ticks at 256 envs of each map on the card
+     against the same ticks run by the plain versions on the CPU;
+  5. main paths, each with every kernel's launch counter reset just before
+     and read just after: load_map -> reset_batch(4096) -> rollout of 240
+     ticks of the bench.py stream (hold W, look += 0.01), first on arena
+     (K1, K2), then on arena_bodies (K1, K2, K3; K3 launches once on each
+     tick on which some body is awake, the rigid-body step's gate).
+The last three lines are the card's name and power limit, a JSON object
+with each kernel's launches, error, times and bound, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -24,11 +29,24 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BATCH, TICKS = 4096, 240
 TOL = 1e-5
+KERNELS = ("capsule_resolve", "ray_tris", "body_contacts")
+
+# H100 SXM published peaks (float32 outside the tensor cores; HBM3)
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# float operations per (lane, triangle) pair, counted from the CUDA sources:
+# the closest point on a triangle is ~110; K1 runs three of them plus ~50
+# for the contact per iteration and ~220 per (lane, box); K2's two-sided
+# Moller-Trumbore is ~60; K3's contact, support radius, edge test and
+# insertion are ~256 for a box body plus 7 per cloud vertex for a hull.
+K1_PAIR_FLOPS, K1_BOX_FLOPS, K2_PAIR_FLOPS = 380, 220, 60
+K3_BOX_PAIR_FLOPS, K3_VERTEX_FLOPS = 256, 7
 
 
 def card_line() -> str:
@@ -63,27 +81,78 @@ def cuda_time(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(flops, nbytes):
+    """The least time the card could take: the larger of operations over
+    the peak float32 rate and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def listed_chunk_bytes(idx, cnt):
+    """Bytes of the distinct 32-triangle chunks (2 KB each) some block lists."""
+    import torch
+
+    listed = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None]
+    return int(torch.unique(idx[listed]).numel()) * 32 * 16 * 4
+
+
+def k1_bound(args):
+    from c_game_engine_tpu_torch.ops import capsule_resolve as K1
+
+    tri16, cb, box8, boxh, pos, vel = args
+    idx, cnt = K1.chunk_lists(cb, pos)
+    b, n = pos.shape[0], box8.shape[1]
+    flops = K1.ITERS * (int(cnt.sum()) * 32 * K1.BLK * K1_PAIR_FLOPS + n * b * K1_BOX_FLOPS)
+    nbytes = listed_chunk_bytes(idx, cnt) + (box8.numel() + boxh.numel()) * 4 + 4 * b * 3 * 4 + b
+    return bound_ms(flops, nbytes)
+
+
+def k2_bound(args):
+    from c_game_engine_tpu_torch.ops import ray_tris as K2
+
+    tri16, cb, origin, direction, max_dist = args
+    rays = K2._pack(origin, direction, max_dist)
+    idx, cnt = K2.chunk_lists(cb, rays)
+    r = origin.shape[0]
+    flops = int(cnt.sum()) * 32 * K2.BLK * K2_PAIR_FLOPS
+    nbytes = listed_chunk_bytes(idx, cnt) + r * (6 + 1) * 4 + r * 4
+    return bound_ms(flops, nbytes)
+
+
+def k3_bound(args):
+    from c_game_engine_tpu_torch.ops import body_contacts as K3
+
+    tri16, cb, body, margin, verts, is_box = args
+    idx, cnt = K3.chunk_lists(cb, body, margin)
+    _, d, b = body.shape
+    on = (body[10] > 0.5).reshape(d, b // K3.BLK, K3.BLK).sum(-1)  # awake lanes per (body, block)
+    pair_flops = K3_BOX_PAIR_FLOPS + (~is_box).float() * K3_VERTEX_FLOPS * verts.shape[1]  # [D]
+    pairs = (cnt * on).float() * 32  # (lane, triangle) pairs per (body, block)
+    flops = float((pairs.sum(1) * pair_flops).sum())
+    nbytes = listed_chunk_bytes(idx, cnt) + body.numel() * 4 + verts.numel() * 4 + 8 * d * K3.K * b * 4
+    return bound_ms(flops, nbytes)
+
+
 def capture_kernel_inputs(cmap, state, acts):
-    """Run one tick and record the arguments the tick hands K1 and K2."""
+    """Run one tick and record the arguments the tick hands K1, K2 and K3."""
     from c_game_engine_tpu_torch.core.step import step_batch
-    from c_game_engine_tpu_torch.physics import batched
+    from c_game_engine_tpu_torch.physics import batched, bodies
 
-    seen = {"k1": [], "k2": []}
-    k1, k2 = batched.resolve_capsule, batched.ray_tris
+    seen = {"k1": [], "k2": [], "k3": []}
+    k1, k2, k3 = batched.resolve_capsule, batched.ray_tris, bodies.body_contacts
 
-    def rec1(*a):
-        seen["k1"].append(tuple(t.clone() for t in a))
-        return k1(*a)
+    def recorder(key, fn):
+        def rec(*a):
+            seen[key].append(tuple(t.clone() if hasattr(t, "clone") else t for t in a))
+            return fn(*a)
+        return rec
 
-    def rec2(*a):
-        seen["k2"].append(tuple(t.clone() if hasattr(t, "clone") else t for t in a))
-        return k2(*a)
-
-    batched.resolve_capsule, batched.ray_tris = rec1, rec2
+    batched.resolve_capsule, batched.ray_tris = recorder("k1", k1), recorder("k2", k2)
+    bodies.body_contacts = recorder("k3", k3)
     try:
         state = step_batch(cmap, state, acts)
     finally:
-        batched.resolve_capsule, batched.ray_tris = k1, k2
+        batched.resolve_capsule, batched.ray_tris, bodies.body_contacts = k1, k2, k3
     return state, seen
 
 
@@ -101,7 +170,6 @@ def kernel_phase(cmap, state, acts):
     drop = torch.tensor([0.0, 0.25, 0.0], device=pos.device)
     stick = (tri16, cb, box8[..., :BATCH].contiguous(), boxh[..., :BATCH].contiguous(),
              pos[:BATCH] - drop, vel[:BATCH])
-    report = []
     k1_err, k1_ms = 0.0, {}
     for label, args in (("main", main), ("stick", stick)):
         pk, vk, gk = K1.resolve_capsule(*args)
@@ -116,6 +184,7 @@ def kernel_phase(cmap, state, acts):
                         cuda_time(lambda: K1.resolve_capsule_plain(*args)))
         print(f"K1 capsule_resolve {label} ({args[4].shape[0]} lanes): kernel {k1_ms[label][0]:.4f} ms, "
               f"plain {k1_ms[label][1]:.4f} ms, max abs err {err:.3g}", flush=True)
+    k1_b, k1_by = k1_bound(main)
 
     rays = seen["k2"][0]
     tri16, cb, origin, direction, max_dist = rays
@@ -132,27 +201,60 @@ def kernel_phase(cmap, state, acts):
     if not k2_err <= TOL:
         raise AssertionError(f"K2 t disagrees with its plain version: {k2_err}")
     k2_ms = (cuda_time(lambda: K2.ray_tris(*rays)), cuda_time(lambda: K2.ray_tris_plain(*rays)))
+    k2_b, k2_by = k2_bound(rays)
     print(f"K2 ray_tris {origin.shape[0]} rays: kernel {k2_ms[0]:.4f} ms, plain {k2_ms[1]:.4f} ms, "
           f"max abs err {k2_err:.3g}, hits {int(hit_k.sum())}", flush=True)
-
-    report.append({
-        "name": "capsule_resolve", "route": "cuda",
-        "source": "c_game_engine_tpu_torch/csrc/capsule_resolve.cu",
-        "replaces": "c_game_engine_tpu/ops/capsule_resolve.py:240",
-        "max_abs_err": k1_err, "ms": k1_ms["main"][0], "plain_ms": k1_ms["main"][1],
-        "ms_stick": k1_ms["stick"][0], "plain_ms_stick": k1_ms["stick"][1],
-    })
-    report.append({
-        "name": "ray_tris", "route": "cuda",
-        "source": "c_game_engine_tpu_torch/csrc/ray_tris.cu",
-        "replaces": "c_game_engine_tpu/ops/ray_tris.py:64",
-        "max_abs_err": k2_err, "ms": k2_ms[0], "plain_ms": k2_ms[1],
-    })
-    return report
+    return [
+        {"name": "capsule_resolve", "route": "cuda",
+         "source": "c_game_engine_tpu_torch/csrc/capsule_resolve.cu",
+         "replaces": "c_game_engine_tpu/ops/capsule_resolve.py:240",
+         "max_abs_err": k1_err, "ms": k1_ms["main"][0], "plain_ms": k1_ms["main"][1],
+         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None,
+         "ms_stick": k1_ms["stick"][0], "plain_ms_stick": k1_ms["stick"][1]},
+        {"name": "ray_tris", "route": "cuda",
+         "source": "c_game_engine_tpu_torch/csrc/ray_tris.cu",
+         "replaces": "c_game_engine_tpu/ops/ray_tris.py:64",
+         "max_abs_err": k2_err, "ms": k2_ms[0], "plain_ms": k2_ms[1],
+         "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None},
+    ]
 
 
-def reference_phase(cmap_gpu, cmap_cpu):
-    """30 ticks at 256 envs: kernels on the card vs plain versions on the CPU."""
+def body_kernel_phase(cmap, state, acts):
+    """K3 against its plain version on the inputs a bodies tick hands it."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import body_contacts as K3
+
+    _, seen = capture_kernel_inputs(cmap, state, acts)
+    if len(seen["k3"]) != 1:
+        raise AssertionError(f"the tick launched K3 {len(seen['k3'])} times, expected 1")
+    args = seen["k3"][0]
+    body, is_box = args[2], args[5]
+    n_on = int((body[10] > 0.5).sum())
+    if n_on < int(cmap.aux["num_dynamic"]) * BATCH or bool(is_box[: cmap.aux["num_dynamic"]].all()):
+        raise AssertionError(f"K3 inputs have {n_on} awake (lane, body) pairs and no hull body")
+    ok = K3.body_contacts(*args)
+    op = K3.body_contacts_plain(*args)
+    torch.cuda.synchronize()
+    err = float((ok - op).abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"K3 disagrees with its plain version: max err {err}")
+    ms = (cuda_time(lambda: K3.body_contacts(*args)), cuda_time(lambda: K3.body_contacts_plain(*args)))
+    b_ms, b_by = k3_bound(args)
+    print(f"K3 body_contacts ({body.shape[1]} bodies x {body.shape[2]} lanes, {n_on} awake): "
+          f"kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, max abs err {err:.3g}, "
+          f"bitwise equal {torch.equal(ok, op)}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return {"name": "body_contacts", "route": "cuda",
+            "source": "c_game_engine_tpu_torch/csrc/body_contacts.cu",
+            "replaces": "c_game_engine_tpu/ops/body_contacts.py:202",
+            "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def reference_phase(name, cmap_gpu, cmap_cpu):
+    """30 ticks at 256 envs: kernels on the card vs plain versions on the CPU.
+    Bars of tests/test_tpu_parity.py: player position 2e-3, other floats
+    (actor position and quaternion included) 5e-3, integers exact."""
     import torch
 
     from c_game_engine_tpu_torch.core.state import tree_leaves
@@ -170,11 +272,67 @@ def reference_phase(cmap_gpu, cmap_cpu):
         if c.is_floating_point():
             tol = 2e-3 if k == "player.pos" else 5e-3
             if not torch.allclose(g, c, atol=tol, rtol=0):
-                raise AssertionError(f"{k}: card vs CPU differ by {float((g - c).abs().max())}")
+                raise AssertionError(f"{name} {k}: card vs CPU differ by {float((g - c).abs().max())}")
         elif not torch.equal(g, c):
-            raise AssertionError(f"{k}: card vs CPU differ")
-    print(f"reference: {t} ticks x {b} envs on the card match the CPU plain path "
+            raise AssertionError(f"{name} {k}: card vs CPU differ")
+    print(f"reference {name}: {t} ticks x {b} envs on the card match the CPU plain path "
           f"(player y {float(C['player.pos'][0, 1]):.4f})", flush=True)
+
+
+def main_path(cmap, label):
+    """240 ticks x 4096 envs with every launch counter reset just before and
+    read just after. Returns (final state, counts, seconds, gate ticks)."""
+    import torch
+
+    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.ops import body_contacts as K3
+    from c_game_engine_tpu_torch.ops import capsule_resolve as K1
+    from c_game_engine_tpu_torch.ops import ray_tris as K2
+    from c_game_engine_tpu_torch.physics import bodies
+
+    acts = bench_actions(TICKS, BATCH, "cuda")
+    rollout(cmap, reset_batch(cmap, BATCH), acts[:4])  # warm-up
+    torch.cuda.synchronize()
+    state = reset_batch(cmap, BATCH)
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = K3.launches = 0
+    bodies.active_ticks = 0
+    t0 = time.perf_counter()
+    state = rollout(cmap, state, acts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"capsule_resolve": K1.launches, "ray_tris": K2.launches, "body_contacts": K3.launches}
+    gate = bodies.active_ticks
+
+    from c_game_engine_tpu_torch.core.state import tree_leaves
+
+    for k, v in tree_leaves(state):
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}: non-finite state leaf {k}")
+        if not bool((v == v[:1]).all()):
+            raise AssertionError(f"{label}: envs on one stream diverged in {k}")
+    if int(state.tick[0]) != TICKS:
+        raise AssertionError(f"{label}: tick {int(state.tick[0])} != {TICKS}")
+    return state, counts, dt, gate
+
+
+def sunk_bodies(cmap, state):
+    """Dynamic bodies whose centre is more than 0.05 m lower than their
+    smallest half extent above the ground under it (ground: the first
+    static hit of a ray cast straight down from 2 m above the centre)."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops.ray_tris import ray_tris
+
+    rows = cmap.dyn_slots[cmap.dyn_slots >= 0].long()
+    centre = state.actors.pos[0, rows]  # one env: every env follows one stream
+    origin = centre + torch.tensor([0.0, 2.0, 0.0], device=centre.device)
+    down = torch.tensor([0.0, -1.0, 0.0], device=centre.device).expand_as(origin).contiguous()
+    t = ray_tris(cmap.tri16, cmap.chunk_bounds, origin, down, 10.0)
+    ground = origin[:, 1] - t
+    rest = ground + cmap.halfext[rows].amin(-1)
+    sunk = rest - centre[:, 1] > 0.05
+    return [(int(r), float(c), float(g)) for r, c, g, s in zip(rows, centre[:, 1], ground, sunk) if s]
 
 
 def main() -> int:
@@ -190,58 +348,60 @@ def main() -> int:
     from c_game_engine_tpu_torch.core.state import load_map
     from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
     from c_game_engine_tpu_torch.ops import build
-    from c_game_engine_tpu_torch.ops import capsule_resolve as K1
-    from c_game_engine_tpu_torch.ops import ray_tris as K2
 
     t0 = time.perf_counter()
-    for name in ("capsule_resolve", "ray_tris"):
-        build.build(name)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.build, KERNELS))
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(KERNELS)} kernels in parallel "
+          f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
     maps = ROOT / "c_game_engine_tpu_torch" / "maps"
-    cmap = load_map(maps / "arena.npz", maps / "arena.json", "cuda")
+    load = lambda name, dev: load_map(maps / f"{name}.npz", maps / f"{name}.json", dev)
+    arena, bodies_map = load("arena", "cuda"), load("arena_bodies", "cuda")
 
-    # kernel phase on real states: a few ticks of the bench stream first
-    state = rollout(cmap, reset_batch(cmap, BATCH), bench_actions(8, BATCH, "cuda"))
-    report = kernel_phase(cmap, state, bench_actions(1, BATCH, "cuda")[0])
+    # kernel phases on real states: a few ticks of the bench stream first
+    state = rollout(arena, reset_batch(arena, BATCH), bench_actions(8, BATCH, "cuda"))
+    report = kernel_phase(arena, state, bench_actions(1, BATCH, "cuda")[0])
+    report.append(body_kernel_phase(bodies_map, reset_batch(bodies_map, BATCH),
+                                    bench_actions(1, BATCH, "cuda")[0]))
 
-    reference_phase(cmap, load_map(maps / "arena.npz", maps / "arena.json", "cpu"))
+    reference_phase("arena", arena, load("arena", "cpu"))
+    reference_phase("arena_bodies", bodies_map, load("arena_bodies", "cpu"))
 
-    # main path: warm up, then the counted and timed run
-    acts = bench_actions(TICKS, BATCH, "cuda")
-    rollout(cmap, reset_batch(cmap, BATCH), acts[:4])
-    torch.cuda.synchronize()
-    state = reset_batch(cmap, BATCH)
-    torch.cuda.synchronize()
-    K1.launches = 0
-    K2.launches = 0
-    t0 = time.perf_counter()
-    state = rollout(cmap, state, acts)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = {"capsule_resolve": K1.launches, "ray_tris": K2.launches}
-
-    from c_game_engine_tpu_torch.core.state import tree_leaves
-
-    for k, v in tree_leaves(state):
-        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite state leaf {k}")
-    pos = state.player.pos
-    if not bool((pos == pos[0]).all()):
-        raise AssertionError("envs on one stream diverged")
-    if int(state.tick[0]) != TICKS:
-        raise AssertionError(f"tick {int(state.tick[0])} != {TICKS}")
-    for name, n in counts.items():
-        if n < TICKS:
-            raise AssertionError(f"{name} launched {n} times in {TICKS} ticks")
+    # main paths
+    by_path = {}
+    state, counts, dt, _ = main_path(arena, "arena")
+    for name in ("capsule_resolve", "ray_tris"):
+        if counts[name] < TICKS:
+            raise AssertionError(f"arena: {name} launched {counts[name]} times in {TICKS} ticks")
     steps = BATCH * TICKS / dt
-    print(f"main path: {TICKS} ticks x {BATCH} envs in {dt:.3f} s = {steps:.1f} steps/s "
-          f"on {card}; launches {counts}; final player pos {pos[0].tolist()}", flush=True)
+    by_path["arena"] = {"counts": counts, "steps_per_s": steps}
+    print(f"main path arena: {TICKS} ticks x {BATCH} envs in {dt:.3f} s = {steps:.1f} steps/s "
+          f"on {card}; launches {counts}; final player pos {state.player.pos[0].tolist()}", flush=True)
+
+    state, counts, dt, gate = main_path(bodies_map, "arena_bodies")
+    for name in ("capsule_resolve", "ray_tris"):
+        if counts[name] < TICKS:
+            raise AssertionError(f"arena_bodies: {name} launched {counts[name]} times in {TICKS} ticks")
+    if not 0 < counts["body_contacts"] == gate:
+        raise AssertionError(f"arena_bodies: K3 launched {counts['body_contacts']} times, "
+                             f"the body gate opened on {gate} ticks")
+    sunk = sunk_bodies(bodies_map, state)
+    if sunk:
+        raise AssertionError(f"arena_bodies: bodies below their floor (row, y, ground): {sunk}")
+    steps = BATCH * TICKS / dt
+    by_path["arena_bodies"] = {"counts": counts, "steps_per_s": steps, "gate_ticks": gate}
+    print(f"main path arena_bodies: {TICKS} ticks x {BATCH} envs in {dt:.3f} s = {steps:.1f} steps/s "
+          f"on {card}; launches {counts}; body gate open on {gate} ticks; "
+          f"final player pos {state.player.pos[0].tolist()}", flush=True)
 
     for k in report:
-        k["launches"] = counts[k["name"]]
-    print(json.dumps({"kernels": report, "steps_per_s": steps}))
+        path = "arena_bodies" if k["name"] == "body_contacts" else "arena"
+        k["launches"] = by_path[path]["counts"][k["name"]]
+        k["launches_by_path"] = {p: v["counts"][k["name"]] for p, v in by_path.items()}
     print(card)
+    print(json.dumps({"kernels": report,
+                      "steps_per_s": {p: v["steps_per_s"] for p, v in by_path.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -4,10 +4,13 @@ where no CUDA device is present). Run them on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same device:
-positions, velocities and ray t within 1e-5 (the kernels are built with
---fmad=false, so they round as the plain version does), `grounded` and
-hit/miss exactly; a short rollout on the card is held to the CPU plain
-path with the slice bars of tests/test_torch_slice.py.
+positions, velocities, ray t and contacts within 1e-5 (the kernels are
+built with --fmad=false, so they round as the plain version does),
+`grounded`, hit/miss and the contact kernel's tie order exactly; a short
+rollout on the card is held to the CPU plain path with the slice bars of
+tests/test_torch_slice.py. The helpers are imported as top-level modules
+of tests/ (pytest puts the directory on sys.path): where an installed
+package named `tests` exists, it hides the directory as a package.
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ def arena():
 @pytest.mark.parametrize("layout", ["clustered", "scattered"])
 def test_capsule_resolve_kernel_matches_plain(cuda, arena, layout):
     from c_game_engine_tpu_torch.ops import capsule_resolve as k1
-    from tests.test_torch_kernels import _capsule_inputs
+    from torch_inputs import capsule_inputs
 
-    args = [torch.as_tensor(a, device=cuda) for a in _capsule_inputs(arena("cpu"), layout, seed=7)]
+    args = [torch.as_tensor(a, device=cuda) for a in capsule_inputs(arena("cpu"), layout, seed=7)]
     before = k1.launches
     pk, vk, gk = k1.resolve_capsule(*args)
     assert k1.launches == before + 1
@@ -72,9 +75,27 @@ def test_ray_tris_kernel_matches_plain(cuda, arena):
     assert float((tk - tp).abs().max()) <= 1e-5
 
 
+def test_body_contacts_kernel_matches_plain(cuda, arena):
+    """K3 on the card against its plain version: box and hull bodies, off
+    and padded lanes and the built tie of tests/test_torch_bodies.py,
+    bit for bit (the tie order included)."""
+    from c_game_engine_tpu_torch.ops import body_contacts as k3
+    from torch_inputs import k3_inputs
+
+    *args, is_box = k3_inputs(arena("cpu"))
+    args = [torch.as_tensor(a, device=cuda) for a in args] + [torch.tensor(is_box, device=cuda)]
+    before = k3.launches
+    ok = k3.body_contacts(*args)
+    assert k3.launches == before + 1
+    op = k3.body_contacts_plain(*args)
+    torch.cuda.synchronize()
+    assert float((ok - op).abs().max()) <= 1e-5
+    assert torch.equal(ok, op)
+
+
 def test_rollout_on_card_matches_cpu(cuda, arena):
     from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
-    from tests.torch_parity import assert_leaves_match, stream_batch, torch_actions, torch_leaves
+    from torch_parity import assert_leaves_match, stream_batch, torch_actions, torch_leaves
 
     streams = stream_batch(30, 256, seed=0)
     g = rollout(arena(cuda), reset_batch(arena(cuda), 256), torch_actions(*streams, device=cuda))

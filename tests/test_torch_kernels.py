@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_inputs import capsule_inputs as _capsule_inputs
 from tests.torch_parity import export_and_load
 
 B = 256
@@ -82,39 +83,6 @@ def test_compact_chunk_lists_equal(maps):
         np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     assert int(np.asarray(cj)[4]) == 0  # the empty query
-
-
-def _capsule_inputs(tc, layout, seed):
-    """pos/vel [B, 3] and random solid boxes [8/4, N, B] near the lanes."""
-    rng = np.random.default_rng(seed)
-    if layout == "clustered":
-        # every 128-lane block is a small cluster on the stairs/terrace
-        centres = np.array([[10.9, 0.45, -2.0], [16.0, 1.25, 3.0]], np.float32)
-        pos = np.repeat(centres, 128, 0) + rng.normal(0, 0.05, (B, 3)).astype(np.float32)
-    else:
-        pos = np.stack(
-            [rng.uniform(-23, 23, B), rng.uniform(0.2, 1.6, B), rng.uniform(-23, 23, B)], 1
-        ).astype(np.float32)
-    vel = rng.normal(0, 2.0, (B, 3)).astype(np.float32)
-    n = 4
-    q = rng.normal(size=(n, B, 4)).astype(np.float32)
-    q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    # box centres 0.3-0.9 m off the capsule axis and at most 0.26 m from
-    # centre to corner, so the axis never runs inside a box (a degenerate
-    # zero-distance contact whose tie-break turns on the last bit)
-    ang = rng.uniform(0, 2 * np.pi, (n, B))
-    rad = rng.uniform(0.3, 0.9, (n, B))
-    off = np.stack([rad * np.cos(ang), rng.uniform(-0.5, 0.5, (n, B)), rad * np.sin(ang)])
-    box8 = np.concatenate(
-        [
-            (pos.T[:, None, :] + off).astype(np.float32),
-            q.transpose(2, 0, 1),
-            (rng.random((1, n, B)) < 0.7).astype(np.float32),
-        ]
-    )
-    boxh = np.concatenate([rng.uniform(0.05, 0.15, (3, n, B)), np.zeros((1, n, B))]).astype(np.float32)
-    tri16 = tc.tri16.numpy()
-    return tri16, tc.chunk_bounds.numpy(), box8, boxh, pos, vel
 
 
 @pytest.mark.parametrize("layout", ["clustered", "scattered"])

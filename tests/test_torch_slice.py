@@ -117,16 +117,32 @@ def test_change_map_carries_save_and_frame(arena, rollouts):
     assert int(P["frame"][0]) == TICKS and int(P["tick"][0]) == 0
 
 
-def test_dynamic_bodies_raise_not_implemented(tmp_path):
+def test_dynamic_bodies_match_jax(tmp_path):
+    """A map with one dynamic body (an npc_john, whose hull cloud takes the
+    vertex branch of the body-contact kernel K3) rolls out on the port as
+    in the JAX package: 10 ticks at B=128 with no input."""
+    import jax
+
+    from c_game_engine_tpu.models.sim import reset_batch as j_reset
+    from c_game_engine_tpu.models.sim import rollout as j_rollout
     from c_game_engine_tpu_torch.core.actions import Actions
     from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.ops import body_contacts
     from tests.worldgen import actor, make_map
 
     jc = make_map([actor("npc_john", (2.0, -0.5, 0.0))])
-    assert jc.aux["num_dynamic"] == 1
+    assert jc.aux["num_dynamic"] == 1 and not jc.aux["hulls_are_boxes"]
     tc = export_and_load(jc, tmp_path)
-    with pytest.raises(NotImplementedError, match="K3"):
-        rollout(tc, reset_batch(tc, 128), Actions.zeros((1, 128)))
+    acts = Actions.zeros((10, 128), device="cpu")
+    js = jax.jit(lambda s, a: j_rollout(jc, s, a))(j_reset(jc, 128), jax_actions(
+        acts.move.numpy(), acts.look.numpy(), acts.buttons.numpy()))
+    before = body_contacts.launches
+    ts = rollout(tc, reset_batch(tc, 128), acts)
+    assert body_contacts.launches == before  # the plain version on the CPU
+    J, P = jax_leaves(js), torch_leaves(ts)
+    assert_leaves_match(J, P, {"player.pos": 2e-3})
+    john = jc.aux["actor_classes"].index("NPC_JOHN")
+    assert -0.52 < P["actors.pos"][0, john, 1] < -0.48  # stands on the floor (-1 + 0.5)
 
 
 def test_port_never_imports_jax():

@@ -1,13 +1,14 @@
-"""Build the asset-free `arena` map with the JAX compiler and export it as
-plain numpy/JSON files that the PyTorch port (`c_game_engine_tpu_torch`)
-loads without JAX.
+"""Build the asset-free `arena` and `arena_bodies` maps with the JAX
+compiler and export them as plain numpy/JSON files that the PyTorch port
+(`c_game_engine_tpu_torch`) loads without JAX.
 
 Usage (from the repo root, on the CPU):
 
     JAX_PLATFORMS=cpu python tests/torch_export_map.py
 
-writes `c_game_engine_tpu_torch/maps/arena.npz` (every array leaf of the
-CompiledMap) and `arena.json` (its `aux` dict, minus the AssetResolver).
+writes `c_game_engine_tpu_torch/maps/<name>.npz` (every array leaf of the
+CompiledMap) and `<name>.json` (its `aux` dict, minus the AssetResolver)
+for both maps.
 
 The arena is a 48 x 48 m floor tessellated into 1 m cells, with a stair
 run of 0.2 m risers up to a 0.8 m terrace, one ramp back down (the only
@@ -15,6 +16,15 @@ tilted triangles of the map), and tessellated perimeter walls. Flat parts
 are exactly flat: a tilted triangle's extended plane is where the
 per-block candidate set of the capsule-resolve kernel can read a far
 triangle as a deep contact, so the map keeps those to the ramp.
+
+`arena_bodies` is the arena plus 13 dynamic bodies: a 3-box and a 4-box
+physbox stack on the flat floor, 3 physboxes dropped on the ramp, 2
+`npc_john` cylinders (vertex-cloud hulls) on the terrace, and 1 physbox
+1.7 m ahead of the spawn on the path the bench.py stream (hold W, turn 0.01
+rad per tick) walks the player along: near tick 13 the player steps up onto
+it and rides it, pushing it along (a stream that looks down can pick it up
+instead, tests/test_torch_bodies.py). Physboxes need `model/cube.gmdl`,
+which is not in this checkout: `StubResolver` stands in for it.
 """
 
 from __future__ import annotations
@@ -173,24 +183,99 @@ def arena_actors():
     ]
 
 
-def compile_arena():
+def stub_resolver():
+    """An AssetResolver that answers every model with a 0.2 m half-extent
+    box centred on the body origin, with no hull cloud and no inertia
+    override: the stand-in for the absent `model/cube.gmdl`, whose collision
+    shape is such a box. `build_physbox` sets the physbox mass (10)."""
+    from c_game_engine_tpu.compiler.models import AssetResolver, ModelInfo
+
+    class StubResolver(AssetResolver):
+        def model(self, rel):
+            return ModelInfo(rel, None, np.full(3, 0.2, np.float32), np.zeros(3, np.float32), 64.0)
+
+    return StubResolver(search_paths=())
+
+
+# (x, z) of the two physbox stacks, the three ramp drops, the two johns and
+# the box on the bench-stream path (where the player is near tick 17)
+STACK3_XZ = (-6.0, 6.0)
+STACK4_XZ = (-12.0, 10.0)
+RAMP_DROPS = ((15.0, 7.0), (16.5, 8.0), (17.0, 9.2))
+JOHNS_XZ = ((16.0, -6.0), (18.0, 2.0))
+PATH_BOX_XZ = (8.85, -3.7)
+
+
+def _ramp_y(z):
+    top = 4 * STEP
+    return top * (RAMP[3] - z) / (RAMP[3] - RAMP[2])
+
+
+def body_actors():
+    """The 13 dynamic bodies of `arena_bodies`."""
+    from tests.worldgen import actor
+
+    out = []
+    for (x, z), n in ((STACK3_XZ, 3), (STACK4_XZ, 4)):
+        # dropped in a column with small gaps (tests/test_stacking.py)
+        out += [actor("prop_physbox", (x, 0.3 + 0.45 * i, z)) for i in range(n)]
+    out += [actor("prop_physbox", (x, _ramp_y(z) + 0.6, z)) for x, z in RAMP_DROPS]
+    out += [actor("npc_john", (x, 4 * STEP + 0.6, z)) for x, z in JOHNS_XZ]
+    out.append(actor("prop_physbox", (PATH_BOX_XZ[0], 0.2, PATH_BOX_XZ[1])))
+    return out
+
+
+def compile_arena_bodies():
+    from c_game_engine_tpu.compiler.compile import compile_map
+
+    return compile_map(_arena_gmap(arena_actors() + body_actors()), name="arena_bodies",
+                       resolver=stub_resolver())
+
+
+def make_stub_map(actors, tris=None, spawn=(0.0, 0.0, 0.0)):
+    """tests/worldgen.py::make_map compiled with the stub resolver, so
+    physboxes compile without the reference models."""
     from c_game_engine_tpu.assets.gmap import GMap, MapCollisionMesh
     from c_game_engine_tpu.compiler.compile import compile_map
-    from tests.worldgen import actor
+    from tests.worldgen import actor, box_room
 
     gmap = GMap(
         render_sky=False,
         sky_texture=None,
         discord_icon="",
+        discord_name="synthetic",
+        actors=list(actors),
+        models=[],
+        collision=[MapCollisionMesh(np.zeros(3, np.float32), [box_room() if tris is None else tris])],
+        lightmap=np.ones((1, 1, 4), np.float32),
+        point_lights=np.zeros((0, 9), np.float32),
+        player_spawn=actor("player", spawn, (0, 0, 0)),
+    )
+    return compile_map(gmap, name="synthetic", resolver=stub_resolver())
+
+
+def compile_arena():
+    from c_game_engine_tpu.compiler.compile import compile_map
+
+    return compile_map(_arena_gmap(arena_actors()), name="arena")
+
+
+def _arena_gmap(actors):
+    from c_game_engine_tpu.assets.gmap import GMap, MapCollisionMesh
+    from tests.worldgen import actor
+
+    return GMap(
+        render_sky=False,
+        sky_texture=None,
+        discord_icon="",
         discord_name="arena",
-        actors=arena_actors(),
+        actors=actors,
         models=[],
         collision=[MapCollisionMesh(np.zeros(3, np.float32), [arena_tris()])],
         lightmap=np.ones((1, 1, 4), np.float32),
         point_lights=np.zeros((0, 9), np.float32),
         player_spawn=actor("player", SPAWN, (0, 0, 0)),
     )
-    return compile_map(gmap, name="arena")
 
 
 def map_to_numpy(cmap):
@@ -214,17 +299,21 @@ def export(cmap, npz_path, json_path):
         f.write("\n")
 
 
+MAPS = {"arena": compile_arena, "arena_bodies": compile_arena_bodies}
+
+
 def main():
     MAP_DIR.mkdir(parents=True, exist_ok=True)
-    cmap = compile_arena()
-    export(cmap, MAP_DIR / "arena.npz", MAP_DIR / "arena.json")
-    leaves, aux = map_to_numpy(cmap)
-    print(
-        f"arena: {aux['num_real_tris']} tris, {leaves['chunk_bounds'].shape[0]} chunks, "
-        f"{len(aux['actor_names'])} actors, grid {aux['grid_shape']}, "
-        f"num_dynamic {aux['num_dynamic']}, "
-        f"npz {os.path.getsize(MAP_DIR / 'arena.npz')} B"
-    )
+    for name, build in MAPS.items():
+        cmap = build()
+        export(cmap, MAP_DIR / f"{name}.npz", MAP_DIR / f"{name}.json")
+        leaves, aux = map_to_numpy(cmap)
+        print(
+            f"{name}: {aux['num_real_tris']} tris, {leaves['chunk_bounds'].shape[0]} chunks, "
+            f"{len(aux['actor_names'])} actors, grid {aux['grid_shape']}, "
+            f"num_dynamic {aux['num_dynamic']}, "
+            f"npz {os.path.getsize(MAP_DIR / f'{name}.npz')} B"
+        )
 
 
 if __name__ == "__main__":

@@ -1,0 +1,126 @@
+"""Inputs of the port's kernel tests, made on the host with numpy from a
+seed: shared by the CPU parity tests (tests/test_torch_kernels.py,
+tests/test_torch_bodies.py) and the card tests (tests/test_torch_cuda.py),
+so this module imports numpy only: a GPU host need not have JAX."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def capsule_inputs(tc, layout, seed, batch=256):
+    """pos/vel [B, 3] and random solid boxes [8/4, N, B] near the lanes."""
+    rng = np.random.default_rng(seed)
+    if layout == "clustered":
+        # every 128-lane block is a small cluster on the stairs/terrace
+        centres = np.array([[10.9, 0.45, -2.0], [16.0, 1.25, 3.0]], np.float32)
+        pos = np.repeat(centres, 128, 0) + rng.normal(0, 0.05, (batch, 3)).astype(np.float32)
+    else:
+        pos = np.stack(
+            [rng.uniform(-23, 23, batch), rng.uniform(0.2, 1.6, batch), rng.uniform(-23, 23, batch)], 1
+        ).astype(np.float32)
+    vel = rng.normal(0, 2.0, (batch, 3)).astype(np.float32)
+    n = 4
+    q = rng.normal(size=(n, batch, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    # box centres 0.3-0.9 m off the capsule axis and at most 0.26 m from
+    # centre to corner, so the axis never runs inside a box (a degenerate
+    # zero-distance contact whose tie-break turns on the last bit)
+    ang = rng.uniform(0, 2 * np.pi, (n, batch))
+    rad = rng.uniform(0.3, 0.9, (n, batch))
+    off = np.stack([rad * np.cos(ang), rng.uniform(-0.5, 0.5, (n, batch)), rad * np.sin(ang)])
+    box8 = np.concatenate(
+        [
+            (pos.T[:, None, :] + off).astype(np.float32),
+            q.transpose(2, 0, 1),
+            (rng.random((1, n, batch)) < 0.7).astype(np.float32),
+        ]
+    )
+    boxh = np.concatenate([rng.uniform(0.05, 0.15, (3, n, batch)), np.zeros((1, n, batch))]).astype(np.float32)
+    tri16 = tc.tri16.numpy()
+    return tri16, tc.chunk_bounds.numpy(), box8, boxh, pos, vel
+
+
+def cylinder(radius, half_height, n_sides=12):
+    """A Y-axis cylinder's support cloud: two inscribed n-gon rings (the
+    cloud the compiler gives npc_john), made here so the card tests need no
+    JAX."""
+    a = np.arange(n_sides) * (2 * np.pi / n_sides)
+    ring = np.stack([radius * np.cos(a), np.zeros(n_sides), radius * np.sin(a)], -1)
+    return np.concatenate([ring + [0.0, half_height, 0.0], ring - [0.0, half_height, 0.0]]).astype(np.float32)
+
+
+# three 32-triangle chunks far from the arena (x = 100) for body 0's second
+# block: chunk 0 holds E1, chunk 1 holds E2 (its mirror image: the same
+# depth at another point), chunk 2 three floors C1-C3 deeper than both
+TIE_X = 100.0
+
+
+def _tie_chunks():
+    """([96, 16] rows, [3, 4] chunk bounds): E1, E2 and C1-C3 for a 0.2 m
+    box centred at (TIE_X, 0.15, 0). The TPU kernel's chunk-then-bubble
+    insertion keeps [C1, C2, C3, E2]; a stable merge would keep E1."""
+    x = TIE_X
+    rows = np.zeros((96, 16), np.float32)
+
+    def tri(r, a, b, c):
+        rows[r, 0:9] = np.array([a, b, c], np.float32).reshape(9)
+        rows[r, 9:16] = (0.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0)  # up normal, valid, active edges
+
+    tri(0, (x + 0.3, 0.0, -1.0), (x + 0.3, 0.0, 1.0), (x + 2.0, 0.0, 0.0))  # E1
+    tri(32, (x - 0.3, 0.0, 1.0), (x - 0.3, 0.0, -1.0), (x - 2.0, 0.0, 0.0))  # E2
+    for r, y in enumerate((0.03, 0.02, 0.01)):  # C1-C3 under the box
+        tri(64 + r, (x - 2.0, y, -3.0), (x - 2.0, y, 3.0), (x + 4.0, y, 0.0))
+    bounds = np.array([[x + 0.3, -1.0, x + 2.0, 1.0], [x - 2.0, -1.0, x - 0.3, 1.0],
+                       [x - 2.0, -3.0, x + 4.0, 3.0]], np.float32)
+    return rows, bounds
+
+
+def k3_inputs(tc):
+    """body11 [16, 4, 256] for two box bodies and two hull bodies over two
+    128-lane blocks; the last 56 lanes are zero padding.
+
+    Every body sits near the floor, the stairs or the ramp, and a third of
+    its lanes are off. Lanes 0-15 of body 0 are centred over a floor cell
+    at (x + 0.5, z + 0.5), unrotated and at rest, where four neighbouring
+    triangles give the same depth at four different points: a tie the
+    top-4 must break in visiting order. Body 0's second block sits over the
+    tie chunks appended to the arena's table (_tie_chunks), where the order
+    of the two insertion levels decides which of two equal contacts
+    survives. Body 1 is off in every lane of block 1 (an empty chunk
+    list)."""
+    rng = np.random.default_rng(11)
+    d, b, live = 4, 256, 200
+    centres = np.array([[-3.0, 0.0, 2.0], [11.3, 0.4, -2.2], [16.0, 0.75, 7.5], [-5.0, 0.0, -5.0]])
+    halfext = np.array([[0.2, 0.2, 0.2], [0.3, 0.15, 0.25], [0.25, 0.5, 0.25], [0.25, 0.5, 0.25]])
+    body = np.zeros((16, d, b), np.float32)
+    for k in range(d):
+        pos = centres[k] + rng.normal(0, [0.4, 0.05, 0.4], (b, 3))
+        pos[:, 1] += halfext[k, 1] - 0.05
+        q = rng.normal(size=(b, 4)) * [0.3, 1.0, 0.3, 1.0]
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+        vel = rng.normal(0, 0.5, (b, 3))
+        on = rng.random(b) > 0.33
+        if k == 0:  # the tie lanes
+            pos[:16] = [np.floor(centres[k][0]) + 0.5, 0.15, np.floor(centres[k][2]) + 0.5]
+            pos[128:] = [TIE_X, 0.15, 0.0]
+            q[:16] = q[128:] = [0.0, 0.0, 0.0, 1.0]
+            vel[:16] = vel[128:] = 0.0
+            on[:16] = on[128:] = True
+        if k == 1:
+            on[128:] = False
+        body[0:3, k] = pos.T
+        body[3:7, k] = q.T
+        body[7:10, k] = halfext[k][:, None]
+        body[10, k] = on
+        body[11:14, k] = vel.T
+    body[:, :, live:] = 0.0
+    verts = np.zeros((d, 24, 3), np.float32)
+    verts[:2] = cylinder(0.2, 0.2)  # ignored: box bodies
+    verts[2] = cylinder(0.25, 0.5)
+    verts[3] = cylinder(0.25, 0.5) * [1.2, 1.0, 0.8]
+    margin = (np.linalg.norm(halfext, axis=1) + 0.35).astype(np.float32)
+    rows, bounds = _tie_chunks()
+    tri16 = np.concatenate([tc.tri16.numpy()[: 32 * tc.chunk_bounds.shape[0]], rows])
+    cb = np.concatenate([tc.chunk_bounds.numpy(), bounds])
+    return tri16, cb, body, margin, verts, (True, True, False, False)
