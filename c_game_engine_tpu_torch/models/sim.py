@@ -29,6 +29,15 @@ def change_map(new_cmap, old_state: EnvState) -> EnvState:
     return reset_batch(new_cmap, batch, save=old_state.save, frame=old_state.frame)
 
 
+def bench_actions(ticks: int, batch: int, device="cuda") -> Actions:
+    """The bench.py action stream [ticks, batch]: hold W (move z = -1) and
+    turn 0.01 rad per tick."""
+    acts = Actions.zeros((ticks, batch), device=device)
+    acts.move[..., 1] = -1.0
+    acts.look[..., 0] = 0.01
+    return acts
+
+
 def rollout(cmap, state: EnvState, actions: Actions) -> EnvState:
     """Step through a [T, B, ...] action stream; returns the final state."""
     for t in range(actions.move.shape[0]):

@@ -24,13 +24,37 @@ MAPS = Path(__file__).resolve().parent / "maps"
 KERNEL_NAMES = ("capsule_resolve_kernel", "ray_tris_kernel", "body_contacts_kernel")
 
 
+def device_summary(prof, kernel_names):
+    """(device us, kernel launches, host syncs, {kernel name: (device us,
+    launches)}) of a torch.profiler run; memcpy and memset are not counted
+    as launches, a host sync is a tensor read on the host (bool(t), int(t))."""
+    import torch
+
+    device_us = 0.0
+    launches = syncs = 0
+    kernels = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = e.self_cuda_time_total
+        if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += dev
+            if not e.key.startswith(("Memcpy", "Memset")):
+                launches += e.count
+            for k in kernel_names:
+                if k in e.key:
+                    kernels[k] = (dev, e.count)
+        if e.key == "aten::_local_scalar_dense":
+            syncs += e.count
+    return device_us, launches, syncs, kernels
+
+
 def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from c_game_engine_tpu_torch.core.actions import Actions
     from c_game_engine_tpu_torch.core.state import load_map
-    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
 
     if not torch.cuda.is_available():
         print("profile_tick: no CUDA device", file=sys.stderr)
@@ -41,9 +65,7 @@ def main(argv) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cmap = load_map(MAPS / f"{name}.npz", MAPS / f"{name}.json", "cuda")
-    acts = Actions.zeros((8 + ticks, batch))
-    acts.move[..., 1] = -1.0
-    acts.look[..., 0] = 0.01
+    acts = bench_actions(8 + ticks, batch)
     state = rollout(cmap, reset_batch(cmap, batch), acts[:8])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -51,26 +73,10 @@ def main(argv) -> int:
         state = rollout(cmap, state, acts[8:])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = 0.0
-    launches = 0
-    syncs = 0
-    kernels = {}
-    for e in events:
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = e.self_cuda_time_total
-        if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            device_us += dev
-            if not e.key.startswith(("Memcpy", "Memset")):
-                launches += e.count
-            for k in KERNEL_NAMES:
-                if k in e.key:
-                    kernels[k] = {"ms_per_tick": dev / 1e3 / ticks, "launches": e.count}
-        if e.key == "aten::_local_scalar_dense":  # a tensor read on the host: bool(t), int(t)
-            syncs += e.count
-    for v in kernels.values():
-        v["share_of_device_time"] = v["ms_per_tick"] * ticks * 1e3 / device_us if device_us else None
+    device_us, launches, syncs, found = device_summary(prof, KERNEL_NAMES)
+    kernels = {k: {"ms_per_tick": dev / 1e3 / ticks, "launches": n,
+                   "share_of_device_time": dev / device_us if device_us else None}
+               for k, (dev, n) in found.items()}
     print(json.dumps({
         "card": card, "map": name, "batch": batch, "ticks": ticks,
         "wall_ms_per_tick": wall * 1e3 / ticks,

@@ -1,0 +1,125 @@
+"""RenderBundle: a map's render-side tensors (counterpart of
+c_game_engine_tpu/render/bundle.py), holding what the render path reads:
+map geometry, the actor model pool, the sky mesh, the texture atlas and the
+lightmap. The HUD, UI and viewmodel assets are not ported.
+
+The bundle is built by the JAX package (`build_render_bundle` needs the
+asset resolver and codecs, which stay on that side with the compiler) and
+exported to plain files by `tests/torch_export_map.py`: `<name>_bundle.npz`
+holds the array leaves (the atlas's as `atlas.<field>`, `blocked` as the
+float32 value of each bfloat16 texel, which it holds exactly) and
+`<name>_bundle.json` the static fields.
+
+A bundle belongs to its map, as the JAX one is built from it: loading one
+takes the map and fills the soup's row tables (`soup_rows`), which the JAX
+package derives from the map's static arrays while it traces.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from c_game_engine_tpu_torch.core.state import load_map
+from c_game_engine_tpu_torch.render.textures import TextureAtlas
+
+# the array leaves, in the order of the JAX RenderBundle
+ARRAYS = (
+    "lightmap",
+    "map_pos", "map_uv", "map_lmuv", "map_tex", "map_shaded",
+    "mdl_pos", "mdl_uv", "mdl_color", "mdl_slot", "mdl_lod", "mdl_range",
+    "mdl_lod_dist_sq", "mdl_skin_tex", "mdl_skin_color", "mdl_skin_shaded",
+    "sky_pos", "sky_uv", "sky_tex",
+)
+ATLAS_ARRAYS = ("blocked", "table", "mips", "n_mips", "mip_pairs", "flag_words")
+STATIC = ("live_tri_bound", "has_alpha", "tex_names")
+MAP_DIR = Path(__file__).resolve().parents[1] / "maps"
+
+
+@dataclasses.dataclass(eq=False)
+class RenderBundle:
+    atlas: TextureAtlas
+    lightmap: torch.Tensor  # [LH, LW, 4]
+    map_pos: torch.Tensor  # [Tm, 3, 3]
+    map_uv: torch.Tensor  # [Tm, 3, 2]
+    map_lmuv: torch.Tensor  # [Tm, 3, 2]
+    map_tex: torch.Tensor  # [Tm] i32
+    map_shaded: torch.Tensor  # [Tm] bool
+    mdl_pos: torch.Tensor  # [Tp, 3, 3] local space
+    mdl_uv: torch.Tensor  # [Tp, 3, 2]
+    mdl_color: torch.Tensor  # [Tp, 3, 4]
+    mdl_slot: torch.Tensor  # [Tp] i32
+    mdl_lod: torch.Tensor  # [Tp] i32
+    mdl_range: torch.Tensor  # [M, 2] i32 (start, count) per model id
+    mdl_lod_dist_sq: torch.Tensor  # [M, MAX_LODS]
+    mdl_skin_tex: torch.Tensor  # [M, MAX_SKINS, MAX_SLOTS] i32
+    mdl_skin_color: torch.Tensor  # [M, MAX_SKINS, MAX_SLOTS, 4]
+    mdl_skin_shaded: torch.Tensor  # [M, MAX_SKINS, MAX_SLOTS] bool
+    sky_pos: torch.Tensor  # [Ts, 3, 3]
+    sky_uv: torch.Tensor  # [Ts, 3, 2]
+    sky_tex: torch.Tensor  # [] i32 (-1 = no sky)
+    # the soup's row tables on the bundle's map (soup_rows), int64
+    mdl_actor_rows: torch.Tensor  # [Tmo] actor of each model triangle
+    mdl_pool_rows: torch.Tensor  # [Tmo] its row in the mdl_* pool
+    wall_actor_rows: torch.Tensor  # [Wa] actors with a wall quad
+    # static upper bound on simultaneously valid triangles in a frame
+    live_tri_bound: int = 1 << 30
+    # whether any texel or colour has alpha < 1: gates the reveal pass
+    has_alpha: bool = True
+    tex_names: tuple = ()
+
+
+def soup_rows(mdl_range, cmap) -> dict:
+    """The row tables of the triangle soup for a model pool on a map, on
+    the map's device: each model triangle's actor and pool row (the actors
+    with a model, in actor order, each with its model's range of
+    `mdl_range` [M, 2]), and the actors with a wall quad."""
+    model_id = cmap.model_id.cpu().numpy()
+    ranges = np.asarray(mdl_range)
+    actor_rows, pool_rows = [], []
+    for i in range(cmap.num_actors):
+        m = model_id[i]
+        if m >= 0:
+            s, c = ranges[m]
+            actor_rows.extend([i] * int(c))
+            pool_rows.extend(range(int(s), int(s + c)))
+    wall_rows = np.nonzero(cmap.wall_axis.cpu().numpy() >= 0)[0]
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=cmap.device)
+    return dict(mdl_actor_rows=as_t(actor_rows), mdl_pool_rows=as_t(pool_rows), wall_actor_rows=as_t(wall_rows))
+
+
+def bundle_from_numpy(leaves: dict, static: dict, cmap) -> RenderBundle:
+    """RenderBundle of the map `cmap`, on its device, from {name: ndarray}
+    (atlas leaves as `atlas.<field>`) plus the static fields."""
+    t = lambda a: torch.from_numpy(np.array(a)).to(cmap.device)
+    atlas = {k: t(leaves[f"atlas.{k}"]) for k in ATLAS_ARRAYS}
+    atlas["blocked"] = atlas["blocked"].to(torch.bfloat16)
+    return RenderBundle(
+        atlas=TextureAtlas(**atlas),
+        **{k: t(leaves[k]) for k in ARRAYS},
+        **soup_rows(leaves["mdl_range"], cmap),
+        live_tri_bound=int(static["live_tri_bound"]),
+        has_alpha=bool(static["has_alpha"]),
+        tex_names=tuple(static["tex_names"]),
+    )
+
+
+def load_bundle(npz_path, json_path, cmap) -> RenderBundle:
+    """Read the bundle of the map `cmap` exported by
+    tests/torch_export_map.py onto the map's device."""
+    with np.load(npz_path) as z:
+        leaves = {k: z[k] for k in z.files}
+    with open(json_path) as f:
+        static = json.load(f)
+    return bundle_from_numpy(leaves, static, cmap)
+
+
+def load_render_map(name, device):
+    """(map, bundle) of a committed map with render content, read from
+    c_game_engine_tpu_torch/maps/ onto `device`."""
+    cmap = load_map(MAP_DIR / f"{name}.npz", MAP_DIR / f"{name}.json", device)
+    return cmap, load_bundle(MAP_DIR / f"{name}_bundle.npz", MAP_DIR / f"{name}_bundle.json", cmap)

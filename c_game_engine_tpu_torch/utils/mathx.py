@@ -1,5 +1,6 @@
-"""Scalar, vector and quaternion helpers used by the tick (counterpart of
-c_game_engine_tpu/utils/mathx.py, the functions on the ported path only).
+"""Scalar, vector, quaternion and camera-matrix helpers used by the tick
+and the renderer (counterpart of c_game_engine_tpu/utils/mathx.py, the
+functions on the ported paths only).
 
 Quaternions are (x, y, z, w) like Jolt's JPH_Quat.
 """
@@ -54,3 +55,70 @@ def quat_rotate(q, v):
 def quat_lerp(a, b, t):
     """Component-wise lerp (JPH_Quat_Lerp semantics; caller normalizes)."""
     return a + (b - a) * t
+
+
+def quat_mul(a, b):
+    """Hamilton product a*b (apply b's rotation first, then a's)."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q):
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def quat_from_yaw_pitch(yaw, pitch):
+    """Camera orientation as yaw about Y then pitch about X
+    (q = q_yaw * q_pitch; pitch 0 = level)."""
+    hy = yaw * 0.5
+    hp = pitch * 0.5
+    cy, sy = torch.cos(hy), torch.sin(hy)
+    cp, sp = torch.cos(hp), torch.sin(hp)
+    return torch.stack([cy * sp, sy * cp, -sy * sp, cy * cp], dim=-1)
+
+
+def perspective_lh_zo(fov_y_rad, aspect, near, far):
+    """Left-handed, zero-to-one depth perspective matrix [4, 4] on the CPU
+    (cglm's glm_perspective_lh_zo). `fov_y_rad` is a float32 tensor; the
+    z-row constants are computed in double and rounded to float32 as the
+    JAX package does."""
+    f = 1.0 / torch.tan(torch.as_tensor(fov_y_rad, dtype=torch.float32, device="cpu") * 0.5)
+    m = torch.zeros((4, 4), dtype=torch.float32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = far / (far - near)
+    m[2, 3] = -(far * near) / (far - near)
+    m[3, 2] = 1.0
+    return m
+
+
+def quat_to_mat3(q):
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    row0 = torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1)
+    row1 = torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1)
+    row2 = torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def quat_look(position, q):
+    """View matrix [..., 4, 4] for a camera at `position` [..., 3] with
+    orientation `q` [..., 4] (cglm's glm_quat_look: rotation inverse, then
+    translate). The translation is an elementwise product and sum in
+    float32, never a matrix product."""
+    rot = quat_to_mat3(quat_conj(quat_normalize(q)))
+    m = torch.eye(4, dtype=torch.float32, device=rot.device).repeat(*rot.shape[:-2], 1, 1)
+    m[..., :3, :3] = rot
+    m[..., :3, 3] = -(rot * position[..., None, :]).sum(-1)
+    return m

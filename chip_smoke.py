@@ -10,14 +10,23 @@ Phases (any failure exits non-zero and prints no result line):
      their plain PyTorch versions on the card, on the inputs a tick of a
      4096-env run of the arena map hands them; then the body-contact kernel
      (K3) likewise on the inputs a 4096-env tick of arena_bodies hands it
-     (every body awake, the hull bodies present);
-  4. reference checks: 30 ticks at 256 envs of each map on the card
-     against the same ticks run by the plain versions on the CPU;
+     (every body awake, the hull bodies present); then the tile-raster
+     kernel (K4) on the inputs one 64-env 256 x 256 render_batch of
+     arena_lit hands it, for pass 1 and for the reveal pass;
+  4. reference checks: 30 ticks at 256 envs of each tick map on the card
+     against the same ticks run by the plain versions on the CPU; then 4
+     arena_lit envs after 30 ticks rendered at 256 x 256 on the card
+     against the plain path on the CPU (at most 0.2% of pixels off by more
+     than 1/255);
   5. main paths, each with every kernel's launch counter reset just before
      and read just after: load_map -> reset_batch(4096) -> rollout of 240
      ticks of the bench.py stream (hold W, look += 0.01), first on arena
      (K1, K2), then on arena_bodies (K1, K2, K3; K3 launches once on each
-     tick on which some body is awake, the rigid-body step's gate).
+     tick on which some body is awake, the rigid-body step's gate); then
+     the render path: load_map + load_bundle of arena_lit ->
+     reset_batch(64) -> 60 ticks of the stream -> the 4-heading yaw sweep
+     of benchmarks/run_all.py::bench_render at 256 x 256, once as warm-up
+     and once timed (K4 twice per frame batch: pass 1 and the reveal).
 The last three lines are the card's name and power limit, a JSON object
 with each kernel's launches, error, times and bound, and
 {"ok": true, "device": {...}}.
@@ -35,7 +44,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BATCH, TICKS = 4096, 240
 TOL = 1e-5
-KERNELS = ("capsule_resolve", "ray_tris", "body_contacts")
+KERNELS = ("capsule_resolve", "ray_tris", "body_contacts", "raster_tiles")
+# the render main path: bench_render's batch, size and sweep
+RENDER_BATCH, SIZE, HEADINGS, RENDER_TICKS = 64, 256, 4, 60
+FRAME_BAR = 0.002  # share of pixels that may differ by more than 1/255
 
 # H100 SXM published peaks (float32 outside the tensor cores; HBM3)
 PEAK_FLOPS = 67e12
@@ -47,6 +59,10 @@ PEAK_BYTES = 3.35e12
 # insertion are ~256 for a box body plus 7 per cloud vertex for a hull.
 K1_PAIR_FLOPS, K1_BOX_FLOPS, K2_PAIR_FLOPS = 380, 220, 60
 K3_BOX_PAIR_FLOPS, K3_VERTEX_FLOPS = 256, 7
+# K4: the z test of a listed (pixel, triangle) pair is ~40 (three edge
+# functions, denominator, affine z, the compares); the winner's attributes
+# ~80 once per covered pixel (barycentrics, 1/w, eight interpolations)
+K4_PAIR_FLOPS, K4_PIXEL_FLOPS = 40, 80
 
 
 def card_line() -> str:
@@ -55,15 +71,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def bench_actions(ticks, batch, device):
-    from c_game_engine_tpu_torch.core.actions import Actions
-
-    acts = Actions.zeros((ticks, batch), device=device)
-    acts.move[..., 1] = -1.0
-    acts.look[..., 0] = 0.01
-    return acts
 
 
 def cuda_time(fn, reps=20):
@@ -258,7 +265,7 @@ def reference_phase(name, cmap_gpu, cmap_cpu):
     import torch
 
     from c_game_engine_tpu_torch.core.state import tree_leaves
-    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
 
     b, t = 256, 30
     acts = bench_actions(t, b, "cpu")
@@ -284,10 +291,11 @@ def main_path(cmap, label):
     read just after. Returns (final state, counts, seconds, gate ticks)."""
     import torch
 
-    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
     from c_game_engine_tpu_torch.ops import body_contacts as K3
     from c_game_engine_tpu_torch.ops import capsule_resolve as K1
     from c_game_engine_tpu_torch.ops import ray_tris as K2
+    from c_game_engine_tpu_torch.ops import raster_tiles as K4
     from c_game_engine_tpu_torch.physics import bodies
 
     acts = bench_actions(TICKS, BATCH, "cuda")
@@ -295,13 +303,14 @@ def main_path(cmap, label):
     torch.cuda.synchronize()
     state = reset_batch(cmap, BATCH)
     torch.cuda.synchronize()
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
     bodies.active_ticks = 0
     t0 = time.perf_counter()
     state = rollout(cmap, state, acts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"capsule_resolve": K1.launches, "ray_tris": K2.launches, "body_contacts": K3.launches}
+    counts = {"capsule_resolve": K1.launches, "ray_tris": K2.launches, "body_contacts": K3.launches,
+              "raster_tiles": K4.launches}
     gate = bodies.active_ticks
 
     from c_game_engine_tpu_torch.core.state import tree_leaves
@@ -335,6 +344,154 @@ def sunk_bodies(cmap, state):
     return [(int(r), float(c), float(g)) for r, c, g, s in zip(rows, centre[:, 1], ground, sunk) if s]
 
 
+
+def k4_bound(args, kwargs, planes):
+    """Bytes: the listed rows' 38 columns, the listed ids, the counts, the
+    exclude image and the 12 planes; operations: the z test of every
+    listed (pixel, triangle) pair and one attribute interpolation per
+    covered pixel."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import raster_tiles as K4
+
+    tri48, idx, cnt, h, w = args
+    b, t = tri48.shape[:2]
+    listed = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None]
+    rows = idx.long() + torch.arange(b, device=idx.device)[:, None, None, None] * t
+    n_rows = int(torch.unique(rows[listed]).numel())
+    n_listed = int(cnt.sum())
+    pairs = n_listed * K4.TILE_H * K4.TILE_W
+    covered = int((planes[1] >= 0).sum())
+    pixels = b * h * w
+    nbytes = n_rows * 38 * 4 + n_listed * 4 + cnt.numel() * 4 + pixels * 4 + 12 * pixels * 4
+    return bound_ms(K4_PAIR_FLOPS * pairs + K4_PIXEL_FLOPS * covered, nbytes)
+
+
+def render_kernel_phase(cmap, bundle, state):
+    """K4 against its plain version on the inputs one 64-env render_batch
+    hands it: pass 1 and the reveal pass."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import raster_tiles as K4
+    from c_game_engine_tpu_torch.render.raster import render_batch
+
+    seen, kernel = [], K4.raster_tiles
+
+    def rec(*a, **k):
+        seen.append((a, k))
+        return kernel(*a, **k)
+
+    K4.raster_tiles = rec
+    try:
+        render_batch(bundle, cmap, state, SIZE, SIZE)
+    finally:
+        K4.raster_tiles = kernel
+    if len(seen) != 2:
+        raise AssertionError(f"one render_batch launched K4 {len(seen)} times, expected 2")
+    out, worst = {}, 0.0
+    for label, (a, k) in zip(("pass1", "reveal"), seen):
+        pk = K4.raster_tiles(*a, **k)
+        pp = K4.raster_tiles_plain(*a, **k)
+        torch.cuda.synchronize()
+        if not (torch.equal(pk[1], pp[1]) and torch.equal(pk[11], pp[11])):
+            raise AssertionError(f"K4 ({label}) winner or enc planes differ from its plain version")
+        err = 0.0
+        for g, p in zip(pk, pp):
+            if g.is_floating_point():
+                if not torch.equal(torch.isinf(g), torch.isinf(p)):
+                    raise AssertionError(f"K4 ({label}) empty pixels differ from its plain version")
+                fin = torch.isfinite(p)
+                err = max(err, float(torch.where(fin, g - p, 0.0).abs().max()))
+        if not err <= TOL:
+            raise AssertionError(f"K4 ({label}) disagrees with its plain version: max err {err}")
+        worst = max(worst, err)
+        ms = (cuda_time(lambda: K4.raster_tiles(*a, **k)), cuda_time(lambda: K4.raster_tiles_plain(*a, **k), reps=5))
+        b_ms, b_by = k4_bound(a, k, pk)
+        cnt = a[2]
+        out[label] = (ms, b_ms, b_by)
+        print(f"K4 raster_tiles {label} ({a[0].shape[0]} envs x {SIZE}x{SIZE}, T {a[0].shape[1]}, "
+              f"{int(cnt.sum())} listed, largest tile list {int(cnt.max())}): kernel {ms[0]:.4f} ms, "
+              f"plain {ms[1]:.4f} ms, max abs err {err:.3g}, win/enc equal, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    (ms, b_ms, b_by), (ms2, b2, _) = out["pass1"], out["reveal"]
+    return {"name": "raster_tiles", "route": "cuda",
+            "source": "c_game_engine_tpu_torch/csrc/raster_tiles.cu",
+            "replaces": "c_game_engine_tpu/ops/raster_tiles.py:182",
+            "max_abs_err": worst, "ms": ms[0], "plain_ms": ms[1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_reveal": ms2[0], "plain_ms_reveal": ms2[1], "bound_ms_reveal": b2}
+
+
+def render_reference_phase(cmap, bundle):
+    """4 envs after 30 ticks of the stream, each at its own sweep heading,
+    rendered on the card and by the plain path on the CPU."""
+    import math
+
+    import torch
+
+    from c_game_engine_tpu_torch.core.state import tree_map
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+    from c_game_engine_tpu_torch.render.raster import render_batch
+
+    cm_cpu, rb_cpu = load_render_map("arena_lit", "cpu")
+    st = rollout(cm_cpu, reset_batch(cm_cpu, HEADINGS), bench_actions(30, HEADINGS, "cpu"))
+    st = st.replace(player=st.player.replace(
+        yaw=st.player.yaw + torch.arange(HEADINGS) * (2.0 * math.pi / HEADINGS)))
+    cpu = render_batch(rb_cpu, cm_cpu, st, SIZE, SIZE)
+    gpu = render_batch(bundle, cmap, tree_map(lambda x: x.cuda(), st), SIZE, SIZE).cpu()
+    off = (gpu - cpu).abs().amax(-1) > 1 / 255
+    share = float(off.float().mean())
+    if not share <= FRAME_BAR or not bool(torch.isfinite(gpu).all()):
+        raise AssertionError(f"render: {int(off.sum())} pixels ({share:.4%}) differ from the CPU by more than 1/255")
+    print(f"reference render: {HEADINGS} envs x {SIZE}x{SIZE} on the card match the CPU plain path "
+          f"({int(off.sum())} pixels, {share:.4%}, off by more than 1/255)", flush=True)
+
+
+def coverage(frame):
+    """bench_render's non-sky share: pixels whose 8-bit colour differs from
+    the top-left pixel's by more than 12 (summed over channels)."""
+    import torch
+
+    u8 = (frame.clamp(0, 1) * 255).to(torch.uint8).int()
+    return float(((u8 - u8[0, 0]).abs().sum(-1) > 12).float().mean())
+
+
+def render_main_path(cmap, bundle, state):
+    """The sweep once as warm-up (coverage checked there, as bench_render
+    does), then once timed with every launch counter reset just before and
+    read just after. Returns (counts, seconds, coverages)."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import body_contacts as K3
+    from c_game_engine_tpu_torch.ops import capsule_resolve as K1
+    from c_game_engine_tpu_torch.ops import ray_tris as K2
+    from c_game_engine_tpu_torch.ops import raster_tiles as K4
+    from c_game_engine_tpu_torch.render.raster import render_batch, yaw_sweep
+
+    states = yaw_sweep(state, HEADINGS)
+    warm = [render_batch(bundle, cmap, s, SIZE, SIZE) for s in states]
+    covs = [coverage(f[0]) for f in warm]
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    t0 = time.perf_counter()
+    frames = [render_batch(bundle, cmap, s, SIZE, SIZE) for s in states]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"capsule_resolve": K1.launches, "ray_tris": K2.launches, "body_contacts": K3.launches,
+              "raster_tiles": K4.launches}
+    for k, (f, w) in enumerate(zip(frames, warm)):
+        if f.shape != (RENDER_BATCH, SIZE, SIZE, 3) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"render heading {k}: frames {tuple(f.shape)} not finite")
+        if not torch.equal(f, w):
+            raise AssertionError(f"render heading {k}: the timed frames differ from the warm-up's")
+    if min(covs) < 0.03:
+        raise AssertionError(f"render: sweep non-sky coverage {covs} below 0.03")
+    if counts["raster_tiles"] != 2 * HEADINGS:
+        raise AssertionError(f"render: K4 launched {counts['raster_tiles']} times for {HEADINGS} frame batches")
+    return counts, dt, covs
+
+
 def main() -> int:
     import torch
 
@@ -346,8 +503,9 @@ def main() -> int:
 
     sys.path.insert(0, str(ROOT))
     from c_game_engine_tpu_torch.core.state import load_map
-    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
     from c_game_engine_tpu_torch.ops import build
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -358,15 +516,19 @@ def main() -> int:
     maps = ROOT / "c_game_engine_tpu_torch" / "maps"
     load = lambda name, dev: load_map(maps / f"{name}.npz", maps / f"{name}.json", dev)
     arena, bodies_map = load("arena", "cuda"), load("arena_bodies", "cuda")
+    lit, lit_bundle = load_render_map("arena_lit", "cuda")
 
     # kernel phases on real states: a few ticks of the bench stream first
     state = rollout(arena, reset_batch(arena, BATCH), bench_actions(8, BATCH, "cuda"))
     report = kernel_phase(arena, state, bench_actions(1, BATCH, "cuda")[0])
     report.append(body_kernel_phase(bodies_map, reset_batch(bodies_map, BATCH),
                                     bench_actions(1, BATCH, "cuda")[0]))
+    lit_state = rollout(lit, reset_batch(lit, RENDER_BATCH), bench_actions(RENDER_TICKS, RENDER_BATCH, "cuda"))
+    report.append(render_kernel_phase(lit, lit_bundle, lit_state))
 
     reference_phase("arena", arena, load("arena", "cpu"))
     reference_phase("arena_bodies", bodies_map, load("arena_bodies", "cpu"))
+    render_reference_phase(lit, lit_bundle)
 
     # main paths
     by_path = {}
@@ -395,13 +557,21 @@ def main() -> int:
           f"on {card}; launches {counts}; body gate open on {gate} ticks; "
           f"final player pos {state.player.pos[0].tolist()}", flush=True)
 
+    counts, dt, covs = render_main_path(lit, lit_bundle, lit_state)
+    fps = RENDER_BATCH * HEADINGS / dt
+    by_path["render"] = {"counts": counts, "frames_per_s": fps, "coverage": covs}
+    print(f"main path render arena_lit: {HEADINGS} frame batches x {RENDER_BATCH} envs x {SIZE}x{SIZE} "
+          f"in {dt:.4f} s = {fps:.1f} frames/s on {card}; non-sky coverage by heading "
+          f"{[round(c, 4) for c in covs]}; launches {counts}", flush=True)
+
+    home = {"body_contacts": "arena_bodies", "raster_tiles": "render"}
     for k in report:
-        path = "arena_bodies" if k["name"] == "body_contacts" else "arena"
-        k["launches"] = by_path[path]["counts"][k["name"]]
+        k["launches"] = by_path[home.get(k["name"], "arena")]["counts"][k["name"]]
         k["launches_by_path"] = {p: v["counts"][k["name"]] for p, v in by_path.items()}
     print(card)
     print(json.dumps({"kernels": report,
-                      "steps_per_s": {p: v["steps_per_s"] for p, v in by_path.items()}}))
+                      "steps_per_s": {p: v["steps_per_s"] for p, v in by_path.items() if "steps_per_s" in v},
+                      "frames_per_s": {"render": by_path["render"]["frames_per_s"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -4,13 +4,15 @@ where no CUDA device is present). Run them on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same device:
-positions, velocities, ray t and contacts within 1e-5 (the kernels are
-built with --fmad=false, so they round as the plain version does),
-`grounded`, hit/miss and the contact kernel's tie order exactly; a short
-rollout on the card is held to the CPU plain path with the slice bars of
-tests/test_torch_slice.py. The helpers are imported as top-level modules
-of tests/ (pytest puts the directory on sys.path): where an installed
-package named `tests` exists, it hides the directory as a package.
+positions, velocities, ray t, contacts and the raster planes within 1e-5
+(the kernels are built with --fmad=false, so they round as the plain
+version does), `grounded`, hit/miss, the contact kernel's tie order and
+the raster kernel's winner ids and enc words exactly; a short rollout on
+the card is held to the CPU plain path with the slice bars of
+tests/test_torch_slice.py, and a render to the CPU's with the frame bar.
+The helpers are imported as top-level modules of tests/ (pytest puts the
+directory on sys.path): where an installed package named `tests` exists,
+it hides the directory as a package.
 """
 
 from __future__ import annotations
@@ -101,3 +103,51 @@ def test_rollout_on_card_matches_cpu(cuda, arena):
     g = rollout(arena(cuda), reset_batch(arena(cuda), 256), torch_actions(*streams, device=cuda))
     c = rollout(arena("cpu"), reset_batch(arena("cpu"), 256), torch_actions(*streams))
     assert_leaves_match(torch_leaves(c), torch_leaves(g), {"player.pos": 2e-3})
+
+
+def test_raster_tiles_kernel_matches_plain(cuda):
+    """K4 on the card against its plain version on random tables (equal-z
+    twins, degenerate and off-frame rows, an exclude image, a zeroed tile
+    count): winner ids and enc words equal, the float planes within 1e-5."""
+    from c_game_engine_tpu_torch.ops import raster_tiles as k4
+    from torch_inputs import k4_inputs
+
+    h, w = 64, 256
+    tri48, sx, sy, ok, excl = (torch.as_tensor(a, device=cuda)
+                               for a in k4_inputs(seed=9, batch=4, height=h, width=w, t=400))
+    idx, cnt = k4.bin_triangles(sx, sy, ok, h, w)
+    cnt[1, 2, 1] = 0
+    before = k4.launches
+    got = k4.raster_tiles(tri48, idx, cnt, h, w, exclude=excl)
+    assert k4.launches == before + 1
+    want = k4.raster_tiles_plain(tri48, idx, cnt, h, w, exclude=excl)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[11], want[11])
+    for g, p in zip(got, want):
+        if g.is_floating_point():
+            assert torch.equal(torch.isinf(g), torch.isinf(p))
+            fin = torch.isfinite(p)
+            assert float(torch.where(fin, g - p, 0.0).abs().max()) <= 1e-5
+
+
+def test_render_on_card_matches_cpu(cuda):
+    """A 2-env 256 x 256 render_batch of arena_lit on the card against the
+    plain path on the CPU, held to the frame bar of ROADMAP.md (at most
+    0.2% of pixels off by more than 1/255: CPU and card log2 can round a
+    mip level to the other quarter). K4 runs twice: pass 1 and the reveal
+    pass."""
+    from c_game_engine_tpu_torch.models.sim import reset_batch
+    from c_game_engine_tpu_torch.ops import raster_tiles as k4
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+    from c_game_engine_tpu_torch.render.raster import render_batch
+
+    frames = []
+    for dev in (cuda, torch.device("cpu")):
+        cm, rb = load_render_map("arena_lit", dev)
+        st = reset_batch(cm, 2)
+        st = st.replace(player=st.player.replace(yaw=st.player.yaw + torch.tensor([0.0, 2.0], device=dev)))
+        before = k4.launches
+        frames.append(render_batch(rb, cm, st, 256, 256).cpu())
+        assert k4.launches == before + (2 if dev.type == "cuda" else 0)
+    err = (frames[0] - frames[1]).abs().amax(-1)
+    assert float((err > 1 / 255).float().mean()) <= 0.002

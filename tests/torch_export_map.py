@@ -1,14 +1,17 @@
-"""Build the asset-free `arena` and `arena_bodies` maps with the JAX
-compiler and export them as plain numpy/JSON files that the PyTorch port
-(`c_game_engine_tpu_torch`) loads without JAX.
+"""Build the asset-free `arena`, `arena_bodies` and `arena_lit` maps with
+the JAX compiler and export them as plain numpy/JSON files that the
+PyTorch port (`c_game_engine_tpu_torch`) loads without JAX.
 
 Usage (from the repo root, on the CPU):
 
-    JAX_PLATFORMS=cpu python tests/torch_export_map.py
+    JAX_PLATFORMS=cpu python tests/torch_export_map.py [name ...]
 
 writes `c_game_engine_tpu_torch/maps/<name>.npz` (every array leaf of the
 CompiledMap) and `<name>.json` (its `aux` dict, minus the AssetResolver)
-for both maps.
+for the named maps (all by default); for `arena_lit` also
+`<name>_bundle.npz` and `<name>_bundle.json` (the JAX RenderBundle's
+array leaves and static fields), and a summary of its render soup and
+per-tile list counts.
 
 The arena is a 48 x 48 m floor tessellated into 1 m cells, with a stair
 run of 0.2 m risers up to a 0.8 m terrace, one ramp back down (the only
@@ -25,6 +28,9 @@ rad per tick) walks the player along: near tick 13 the player steps up onto
 it and rides it, pushing it along (a stream that looks down can pick it up
 instead, tests/test_torch_bodies.py). Physboxes need `model/cube.gmdl`,
 which is not in this checkout: `StubResolver` stands in for it.
+
+`arena_lit` is the arena (same collision mesh and actors) with render
+content: see the arena_lit section below.
 """
 
 from __future__ import annotations
@@ -260,22 +266,308 @@ def compile_arena():
     return compile_map(_arena_gmap(arena_actors()), name="arena")
 
 
-def _arena_gmap(actors):
+def _arena_gmap(actors, **render):
     from c_game_engine_tpu.assets.gmap import GMap, MapCollisionMesh
     from tests.worldgen import actor
 
+    kw = dict(render_sky=False, sky_texture=None, models=[], lightmap=np.ones((1, 1, 4), np.float32))
+    kw.update(render)
     return GMap(
-        render_sky=False,
-        sky_texture=None,
         discord_icon="",
         discord_name="arena",
         actors=actors,
-        models=[],
         collision=[MapCollisionMesh(np.zeros(3, np.float32), [arena_tris()])],
-        lightmap=np.ones((1, 1, 4), np.float32),
         point_lights=np.zeros((0, 9), np.float32),
         player_spawn=actor("player", SPAWN, (0, 0, 0)),
+        **kw,
     )
+
+
+# ---------------------------------------------------------------- arena_lit
+# The arena's actors and collision plus render content made here from
+# numpy: a render mesh coarser than the collision mesh (4 m floor blocks
+# where the floor is flat, split down to the 1 m cells of the stairs and
+# the ramp, the risers, 4 m perimeter wall panels), a [64, 64] gradient
+# lightmap, a sky cube, and procedural textures and materials behind
+# `render_resolver()`. The coarse floor keeps every 8 x 128 tile's list
+# under K4's L_CAP: at 128 x 128 one tile row spans the whole view, and
+# the tiles on the horizon then list most of the floor in sight.
+
+FLOOR_BLOCK = 4  # cells of 1 m
+
+FLOOR_MAT = "material/floor.gmtl"  # shaded; texture repeat + filter + mipmaps
+WALL_MAT = "material/wall.gmtl"  # unshaded; texture nearest, no mips
+STONE_MAT = "material/stone.gmtl"  # resolves nowhere: the checkerboard fallback
+SKY_TEX = "texture/sky.gtex"
+SKY_HALF = 10.0  # the sky cube's half extent (it follows the camera)
+LIGHTMAP_SIZE = 64
+
+
+def _q8(px):
+    """Texels as 8-bit values, as a decoded RGBA8 texture holds them."""
+    return (np.round(np.clip(px, 0.0, 1.0) * 255.0) / 255.0).astype(np.float32)
+
+
+def _sprite(w, h, rgb, frames):
+    """A `frames`-frame horizontal strip of discs with alpha-0 backgrounds."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    fw = w // frames
+    cx = (xx % fw) + 0.5 - fw / 2
+    cy = yy + 0.5 - h / 2
+    r = np.sqrt(cx * cx + cy * cy) / (h / 2)
+    px = np.zeros((h, w, 4), np.float32)
+    shade = 1.0 - 0.4 * r + 0.1 * np.cos(xx // fw)
+    px[..., :3] = np.asarray(rgb, np.float32) * shade[..., None]
+    px[..., 3] = (r < 0.85).astype(np.float32)
+    return px
+
+
+def _texture_pixels():
+    """name -> (pixels [h, w, 4], repeat, filter, mipmaps)."""
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:64, 0:64].astype(np.float32)
+    tile = ((xx // 16 + yy // 16) % 2)[..., None]
+    floor = np.concatenate([0.45 + 0.25 * tile + 0.08 * rng.random((64, 64, 1)),
+                            0.4 + 0.2 * tile + 0.08 * rng.random((64, 64, 1)),
+                            0.35 + 0.1 * tile + 0.05 * rng.random((64, 64, 1)),
+                            np.ones((64, 64, 1))], -1)
+    by, bx = np.mgrid[0:32, 0:32]
+    mortar = (by % 8 == 0) | (((bx + 8 * ((by // 8) % 2)) % 16) == 0)
+    wall = np.where(mortar[..., None], [0.75, 0.75, 0.7, 1.0], [0.6, 0.25, 0.2, 1.0]).astype(np.float32)
+    sy, _ = np.mgrid[0:32, 0:64].astype(np.float32)
+    t = (sy / 31.0)[..., None]
+    sky = np.concatenate([0.3 + 0.5 * t, 0.5 + 0.4 * t, np.full_like(t, 0.95), np.ones_like(t)], -1)
+    dy, dx = np.mgrid[0:32, 0:32].astype(np.float32)
+    door = np.stack([0.45 + 0.15 * ((dx // 8) % 2) + 0.05 * np.sin(dy), 0.3 + 0.1 * ((dx // 8) % 2),
+                     0.15 + 0.0 * dx, np.ones_like(dx)], -1)
+    ly, _ = np.mgrid[0:16, 0:16].astype(np.float32)
+    core = np.exp(-(((ly + 0.5) - 8.0) / 3.0) ** 2)
+    laser = np.stack([np.ones_like(core), 0.2 * core, 0.1 * core, 0.6 * core], -1)
+    return {
+        "texture/floor.gtex": (floor, True, True, True),
+        "texture/wall.gtex": (wall, True, False, False),
+        SKY_TEX: (sky, False, True, False),
+        "texture/actor/coin.gtex": (_sprite(64, 16, (1.0, 0.85, 0.2), 4), False, False, False),
+        "texture/actor/bluecoin.gtex": (_sprite(64, 16, (0.25, 0.45, 1.0), 4), False, False, False),
+        "texture/actor/door.gtex": (door, False, True, True),
+        "texture/actor/laser.gtex": (laser, True, False, True),
+    }
+
+
+def _sky_model():
+    """A 12-triangle cube of half extent SKY_HALF, each face mapping the
+    whole sky texture."""
+    from c_game_engine_tpu.assets.codecs import CollisionModelType, Model, ModelLod
+
+    verts, idx = [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            u_ax, v_ax = [a for a in range(3) if a != axis]
+            for k, (a, b) in enumerate(((-1, -1), (1, -1), (1, 1), (-1, 1))):
+                p = np.zeros(3, np.float32)
+                p[axis], p[u_ax], p[v_ax] = sign * SKY_HALF, a * SKY_HALF, b * SKY_HALF
+                uv = ((a + 1) / 2, (1 - b) / 2)
+                verts.append([*p, *uv, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0])
+            base = len(verts) - 4
+            idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+    lod = ModelLod(0.0, np.asarray(verts, np.float32), [np.asarray(idx, np.uint32)])
+    return Model(
+        materials=[{"texture": SKY_TEX, "color": np.ones(4, np.float32), "shader": 0}],
+        skins=np.zeros((1, 1), np.uint32), lods=[lod],
+        aabb_origin=np.zeros(3, np.float32), aabb_extents=np.full(3, SKY_HALF, np.float32),
+        collision_type=CollisionModelType.NONE,
+    )
+
+
+def render_resolver():
+    """An AssetResolver whose materials, textures and models are made here:
+    FLOOR_MAT and WALL_MAT resolve, STONE_MAT does not (the compiler then
+    takes the fallback material, whose "_generic_fallback" texture is the
+    checkerboard); the sky, floor, wall and actor textures are procedural;
+    the only model is the sky cube."""
+    from c_game_engine_tpu.assets.codecs import MapMaterial, ModelShader, Texture, checkerboard_fallback
+    from c_game_engine_tpu.compiler.models import AssetResolver, ModelInfo
+
+    materials = {
+        FLOOR_MAT: MapMaterial("texture/floor.gtex", ModelShader.SHADED, 0),
+        WALL_MAT: MapMaterial("texture/wall.gtex", ModelShader.UNSHADED, 0),
+    }
+    pixels = _texture_pixels()
+
+    class RenderResolver(AssetResolver):
+        def material(self, rel):
+            return materials.get(rel)
+
+        def texture(self, rel):
+            if rel not in self._textures:
+                if rel in pixels:
+                    px, repeat, filt, mips = pixels[rel]
+                    px = _q8(px)
+                    self._textures[rel] = Texture(px.shape[1], px.shape[0], filt, repeat, mips, px)
+                else:
+                    self._textures[rel] = checkerboard_fallback()
+            return self._textures[rel]
+
+        def model(self, rel):
+            if rel != "model/sky.gmdl":
+                raise ValueError(f"render_resolver has no model {rel!r}")
+            return ModelInfo(rel, _sky_model(), np.full(3, SKY_HALF, np.float32),
+                             np.zeros(3, np.float32), 1.0)
+
+    return RenderResolver(search_paths=())
+
+
+def _lm_uv(x, z):
+    return ((x + HALF) / (2 * HALF), (z + HALF) / (2 * HALF))
+
+
+def _quad(verts, idx, corners, uvs):
+    """Two triangles (0, 1, 2) and (0, 2, 3) over four [x, y, z] corners."""
+    base = len(verts)
+    for p, uv in zip(corners, uvs):
+        verts.append([*p, *uv, *_lm_uv(p[0], p[2])])
+    idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+
+
+def arena_render_models():
+    """The render mesh as MapModels (floor, stone risers, walls), wound
+    like the collision triangles (ccw seen from the visible side)."""
+    from c_game_engine_tpu.assets.gmap import MapModel
+
+    h = _corner_heights()
+    n = 2 * HALF
+    meshes = {FLOOR_MAT: ([], []), STONE_MAT: ([], []), WALL_MAT: ([], [])}
+
+    def floor_cell(x0, x1, z0, z1, c):
+        # corners x0z0, x0z1, x1z1, x1z0: the collision triangles' order
+        corners = [(x0, c[0], z0), (x0, c[3], z1), (x1, c[2], z1), (x1, c[1], z0)]
+        _quad(*meshes[FLOOR_MAT], corners, [(p[0] / 2, p[2] / 2) for p in corners])
+
+    def floor_block(i0, j0, size):
+        """One quad where the block is flat, else its four sub-blocks."""
+        block = h[i0:i0 + size, j0:j0 + size]
+        x0, z0 = i0 - HALF, j0 - HALF
+        if size == 1 or np.all(block == block[0, 0, 0]):
+            floor_cell(x0, x0 + size, z0, z0 + size, h[i0, j0] if size == 1 else [block[0, 0, 0]] * 4)
+            return
+        half = size // 2
+        for di in (0, half):
+            for dj in (0, half):
+                floor_block(i0 + di, j0 + dj, half)
+
+    for bi in range(0, n, FLOOR_BLOCK):
+        for bj in range(0, n, FLOOR_BLOCK):
+            floor_block(bi, bj, FLOOR_BLOCK)
+    # risers (the collision mesh's, as stone quads)
+    risers = []
+    for i in range(n):
+        x0, x1 = i - HALF, i - HALF + 1
+        for j in range(n):
+            z0, z1 = j - HALF, j - HALF + 1
+            c = h[i, j]
+            for (p0, p1, mine, o) in (
+                ((x1, z0), (x1, z1), (c[1], c[2]), h[i + 1, j] if i + 1 < n else None),
+                ((x0, z1), (x1, z1), (c[3], c[2]), h[i, j + 1] if j + 1 < n else None),
+            ):
+                if o is None:
+                    continue
+                theirs = (o[0], o[3]) if p0[0] == p1[0] else (o[0], o[1])
+                lo = tuple(min(a, b) for a, b in zip(mine, theirs))
+                hi = tuple(max(a, b) for a, b in zip(mine, theirs))
+                _riser(risers, p0, p1, lo, hi)
+    verts, idx = meshes[STONE_MAT]
+    for tri in risers:
+        base = len(verts)
+        for p in tri:
+            along = p[0] + p[2]
+            verts.append([*p, along, p[1], *_lm_uv(p[0], p[2])])
+        idx += [base, base + 1, base + 2]
+    # perimeter walls in 4 m panels (the collision walls' edge order)
+    p = FLOOR_BLOCK
+    for k in range(-HALF, HALF, p):
+        for (p0, p1) in (
+            ((k, -HALF), (k + p, -HALF)),
+            ((k + p, HALF), (k, HALF)),
+            ((-HALF, k + p), (-HALF, k)),
+            ((HALF, k), (HALF, k + p)),
+        ):
+            (x0, z0), (x1, z1) = p0, p1
+            corners = [(x0, 0.0, z0), (x1, 0.0, z1), (x1, WALL_H, z1), (x0, WALL_H, z0)]
+            uvs = [(0.0, 1.0), (1.0, 1.0), (1.0, 0.0), (0.0, 0.0)]
+            _quad(*meshes[WALL_MAT], corners, uvs)
+    return [MapModel(mat, np.asarray(v, np.float32), np.asarray(i, np.uint32))
+            for mat, (v, i) in meshes.items()]
+
+
+def arena_lightmap():
+    """[64, 64, 4] gradient over the arena's XZ square (lightmap uv)."""
+    s = (np.arange(LIGHTMAP_SIZE, dtype=np.float32) + 0.5) / LIGHTMAP_SIZE
+    v, u = np.meshgrid(s, s, indexing="ij")
+    return np.stack([0.55 + 0.45 * u, 0.6 + 0.4 * v, 0.9 - 0.3 * u * v, np.ones_like(u)], -1)
+
+
+def compile_arena_lit():
+    from c_game_engine_tpu.compiler.compile import compile_map
+
+    gmap = _arena_gmap(arena_actors(), render_sky=True, sky_texture=SKY_TEX,
+                       models=arena_render_models(), lightmap=arena_lightmap())
+    return compile_map(gmap, name="arena_lit", resolver=render_resolver())
+
+
+def bundle_to_numpy(rb):
+    """(array leaves {name: ndarray}, static fields) of a JAX RenderBundle,
+    as c_game_engine_tpu_torch/render/bundle.py::load_bundle reads them."""
+    from c_game_engine_tpu_torch.render.bundle import ARRAYS, ATLAS_ARRAYS
+
+    leaves = {k: np.asarray(getattr(rb, k)) for k in ARRAYS}
+    for k in ATLAS_ARRAYS:
+        leaves[f"atlas.{k}"] = np.asarray(getattr(rb.atlas, k))
+    # bf16 -> f32 is exact
+    leaves["atlas.blocked"] = np.asarray(rb.atlas.blocked.astype(np.float32))
+    static = {"live_tri_bound": int(rb.live_tri_bound), "has_alpha": bool(rb.has_alpha),
+              "tex_names": list(rb.tex_names)}
+    return leaves, static
+
+
+def export_bundle(rb, npz_path, json_path):
+    leaves, static = bundle_to_numpy(rb)
+    np.savez_compressed(npz_path, **leaves)
+    with open(json_path, "w") as f:
+        json.dump(static, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def render_summary(name):
+    """Soup size and the largest per-tile list count (K4's L_CAP is 512) of
+    each bench_render sweep frame (4 headings) at 256 x 256 and at the
+    tests' 128 x 128, at the spawn and after 60 ticks of the bench stream,
+    rendered by the port on the CPU from the committed files."""
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.ops import raster_tiles
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+    from c_game_engine_tpu_torch.render.raster import render_batch, yaw_sweep
+
+    cm, rb = load_render_map(name, "cpu")
+    start = reset_batch(cm, 1)
+    seen, binner = [], raster_tiles.bin_triangles
+
+    def record(*a):
+        out = binner(*a)
+        seen.append(int(out[1].max()))
+        return out
+
+    raster_tiles.bin_triangles = record
+    try:
+        for label, st in (("spawn", start), ("tick60", rollout(cm, start, bench_actions(60, 1, "cpu")))):
+            for size in (256, 128):
+                cnts = []
+                for sk in yaw_sweep(st, 4):
+                    render_batch(rb, cm, sk, size, size)
+                    cnts.append(seen[-1])
+                print(f"{name} {label} {size}x{size}: largest per-tile count by heading {cnts}")
+    finally:
+        raster_tiles.bin_triangles = binner
+    return rb.live_tri_bound
 
 
 def map_to_numpy(cmap):
@@ -299,25 +591,36 @@ def export(cmap, npz_path, json_path):
         f.write("\n")
 
 
-MAPS = {"arena": compile_arena, "arena_bodies": compile_arena_bodies}
+MAPS = {"arena": compile_arena, "arena_bodies": compile_arena_bodies, "arena_lit": compile_arena_lit}
+# maps exported with a render bundle
+RENDER_MAPS = ("arena_lit",)
 
 
-def main():
+def main(names):
+    from c_game_engine_tpu.render.bundle import build_render_bundle
+
     MAP_DIR.mkdir(parents=True, exist_ok=True)
-    for name, build in MAPS.items():
-        cmap = build()
+    for name in names or MAPS:
+        cmap = MAPS[name]()
         export(cmap, MAP_DIR / f"{name}.npz", MAP_DIR / f"{name}.json")
         leaves, aux = map_to_numpy(cmap)
-        print(
+        line = (
             f"{name}: {aux['num_real_tris']} tris, {leaves['chunk_bounds'].shape[0]} chunks, "
             f"{len(aux['actor_names'])} actors, grid {aux['grid_shape']}, "
             f"num_dynamic {aux['num_dynamic']}, "
             f"npz {os.path.getsize(MAP_DIR / f'{name}.npz')} B"
         )
+        if name in RENDER_MAPS:
+            export_bundle(build_render_bundle(cmap), MAP_DIR / f"{name}_bundle.npz",
+                          MAP_DIR / f"{name}_bundle.json")
+            soup = render_summary(name)
+            line += (f", render soup {soup} tris, bundle npz "
+                     f"{os.path.getsize(MAP_DIR / f'{name}_bundle.npz')} B")
+        print(line)
 
 
 if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    main()
+    main(sys.argv[1:])

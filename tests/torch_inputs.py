@@ -1,6 +1,7 @@
 """Inputs of the port's kernel tests, made on the host with numpy from a
 seed: shared by the CPU parity tests (tests/test_torch_kernels.py,
-tests/test_torch_bodies.py) and the card tests (tests/test_torch_cuda.py),
+tests/test_torch_bodies.py, tests/test_torch_render.py) and the card tests
+(tests/test_torch_cuda.py),
 so this module imports numpy only: a GPU host need not have JAX."""
 
 from __future__ import annotations
@@ -124,3 +125,44 @@ def k3_inputs(tc):
     tri16 = np.concatenate([tc.tri16.numpy()[: 32 * tc.chunk_bounds.shape[0]], rows])
     cb = np.concatenate([tc.chunk_bounds.numpy(), bounds])
     return tri16, cb, body, margin, verts, (True, True, False, False)
+
+
+def k4_inputs(seed, batch=2, height=32, width=256, t=120):
+    """A random screen-space table for the tile kernel K4, per env:
+    tri48 [B, T, 48] (ops/raster_tiles.py column layout), sx/sy [B, T, 3]
+    and tri_ok [B, T] for the binning, exclude [B, H, W] i32.
+
+    Besides random well-shaped triangles of 5-90 px, some partly off the
+    frame, at z from -0.1 to 1.1 (the z test rejects some pixels) and
+    tilted by up to 0.1 in z across the triangle, as perspective geometry
+    is, every env
+    has: degenerate triangles (two coincident vertices; binned, zero
+    area), a triangle wholly off the frame, and pairs of rows with the same
+    screen geometry and z, so that the lower index must win every pixel of
+    the pair. A third of the pixels exclude a random id."""
+    rng = np.random.default_rng(seed)
+    tri48 = np.zeros((batch, t, 48), np.float32)
+    for b in range(batch):
+        c = np.stack([rng.uniform(-20, width + 20, t), rng.uniform(-8, height + 8, t)], -1)
+        # well-shaped triangles: vertices 120 +- 30 degrees apart around the
+        # centre (a sliver's z and attributes are ill-conditioned, and an
+        # FMA in one evaluation and not the other moves them past 1e-6)
+        ang = rng.uniform(0, 2 * np.pi, (t, 1)) + np.arange(3) * (2 * np.pi / 3) + rng.uniform(-0.5, 0.5, (t, 3))
+        rad = rng.uniform(5, 45, (t, 1)) * rng.uniform(0.7, 1.0, (t, 3))
+        v = c[:, None, :] + rad[..., None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+        v[:6, 2] = v[:6, 0]  # degenerate: two coincident vertices
+        v[6] += [width + 40, 0]  # wholly off the frame
+        z = rng.uniform(-0.1, 1.1, (t, 1)) + rng.uniform(-0.05, 0.05, (t, 3))
+        for k in range(8, t - 1, 12):  # equal-z twins: row k + 1 copies row k's geometry
+            v[k + 1], z[k + 1] = v[k], z[k]
+        tri48[b, :, 0:6] = v.reshape(t, 6)
+        tri48[b, :, 6:9] = z
+        tri48[b, :, 9] = np.arange(t)
+        tri48[b, :, 10:13] = rng.uniform(0.2, 2.0, (t, 3))
+        tri48[b, :, 13:37] = rng.uniform(-1.5, 2.5, (t, 24))
+        tri48[b, :, 37] = rng.integers(0, 1 << 23, t)
+    sx, sy = tri48[..., 0:6:2], tri48[..., 1:6:2]
+    tri_ok = np.ones((batch, t), bool)
+    exclude = rng.integers(0, t, (batch, height, width)).astype(np.int32)
+    exclude[rng.random((batch, height, width)) > 0.33] = -1
+    return tri48, sx.copy(), sy.copy(), tri_ok, exclude
