@@ -9,8 +9,9 @@ benchmarks/run_all.py::bench_render (k * 2 pi / headings added to yaw)
 once as warm-up, then profiles one more sweep and prints one JSON line:
 the card, wall ms per frame batch, frames/s, device kernel ms per frame
 batch, the device's busy share, kernel launches and host syncs per frame
-batch, and the tile kernel's device time per launch with its share. A run
-without a CUDA device fails.
+batch, and each raster kernel's (K4 on the tile route, K5 on the big
+route) device time per launch, launches and share. A run without a CUDA
+device fails.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import subprocess
 import sys
 import time
 
-KERNEL_NAME = "raster_tiles_kernel"
+# ops module name: CUDA kernel name
+KERNELS = {"raster_tiles": "raster_tiles_kernel", "raster_tiles_big": "raster_tiles_big_kernel"}
 
 
 def main(argv) -> int:
@@ -52,11 +54,12 @@ def main(argv) -> int:
             render_batch(bundle, cmap, s, size, size)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device_us, launches, syncs, found = device_summary(prof, (KERNEL_NAME,))
-    kernel = {}
-    if found:
-        dev, n = found[KERNEL_NAME]
-        kernel = {"ms_per_launch": dev / 1e3 / n, "launches": n, "share_of_device_time": dev / device_us}
+    device_us, launches, syncs, found = device_summary(prof, tuple(KERNELS.values()))
+    kernels = {}
+    for op, kname in KERNELS.items():
+        dev, n = found.get(kname, (0.0, 0))
+        kernels[op] = {"ms_per_launch": dev / 1e3 / n if n else None, "launches": n,
+                       "share_of_device_time": dev / device_us if device_us else None}
     print(json.dumps({
         "card": card, "map": name, "batch": batch, "size": size, "frame_batches": headings,
         "wall_ms_per_frame_batch": wall * 1e3 / headings,
@@ -65,7 +68,7 @@ def main(argv) -> int:
         "busy_share": device_us / 1e6 / wall if wall else None,
         "launches_per_frame_batch": launches / headings,
         "host_syncs_per_frame_batch": syncs / headings,
-        "raster_tiles": kernel,
+        **kernels,
     }))
     return 0
 

@@ -1,29 +1,38 @@
 """Batched software rasterizer (counterpart of
-c_game_engine_tpu/render/raster.py, its tile-kernel route).
+c_game_engine_tpu/render/raster.py, its two kernel routes).
 
     frames = render_batch(bundle, cmap, states, 256, 256)  # [B, H, W, 3]
 
 Per frame batch: gather each env's triangle soup (sky first, then map,
-actor models, actor walls) -> camera transform -> pre-clip cull and the
-T_CULL compaction -> near-plane clip (1 triangle -> up to 2) -> per-triangle
-mip level and enc word -> the tri48 table, tile binning and kernel K4
-(ops/raster_tiles.py), which keeps each pixel's z winner and its
-interpolated attributes -> shade. Where the map has alpha content, a
-second K4 pass re-rasterizes with each screen-door-discarded winner
-excluded (only on tiles that have such a pixel), and its layer is shaded
-on a compacted set of tiles; when some env has more such tiles than the
-budget, every env is re-shaded over the full frame instead.
+actor models, actor walls) -> camera transform -> pre-clip cull -> near-plane
+clip -> per-triangle mip level and enc word -> a z pass -> shade. Where the
+map has alpha content, a second z pass re-rasterizes with each
+screen-door-discarded winner excluded (only on tiles that have such a
+pixel), and its layer is shaded on a compacted set of tiles; when some env
+has more such tiles than the budget, every env is re-shaded over the full
+frame instead.
+
+The route follows the bundle's live-triangle bound, as the JAX package's
+does on the TPU:
+  * "tiles" (at most PALLAS_MAX_BOUND = 65,536): the T_CULL compaction,
+    `_clip_near` (1 triangle -> up to 2), the tri48 table, tile binning and
+    kernel K4 (ops/raster_tiles.py), which keeps each pixel's z winner and
+    its interpolated attributes;
+  * "big" (above): no compaction, `_clip_near_compact` (the near-plane
+    crossing rows, at most CLIP_CAP, clipped and appended), the
+    fields-major table with per-row screen bboxes and their chunk and
+    subchunk unions, and kernel K5 (ops/raster_tiles_big.py), which keeps
+    the winner id only; `_attrs_from_winner` then gathers and interpolates
+    the winner's attributes from the flattened vertex table.
 
 Every function that the JAX package vmaps over envs takes a leading batch
 axis here. The JAX `lax.cond` on the reveal overflow is a host-side `if`:
 one host sync per frame batch.
 
-The port has one route, the kernel; `render_batch` raises
-NotImplementedError for what needs another: the `pallas_big` route with
-kernel K5 (maps whose live-triangle bound exceeds 65,536) and the XLA
-pass 1 (`_pass1_xla`, `_attrs_from_winner`: frames that are not whole
-8x128 tiles). Not ported either: supersampling, anisotropic filtering, the
-debug wireframe, the viewmodel and the HUD.
+`render_batch` raises NotImplementedError for frames that are not whole
+8x128 tiles (the JAX XLA pass 1, `_pass1_xla`, is not ported). Not ported
+either: supersampling, anisotropic filtering, the debug wireframe, the dual
+atlas, the viewmodel and the HUD.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 
 from c_game_engine_tpu_torch.actors.defs import ActorClass
 from c_game_engine_tpu_torch.ops import raster_tiles as K4
+from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
 from c_game_engine_tpu_torch.render.textures import sample
 from c_game_engine_tpu_torch.utils.mathx import (
     perspective_lh_zo,
@@ -50,8 +60,9 @@ CHUNK = 64
 MAGIC_XY = (0.06711056, 0.00583715)
 MAGIC_Z = 52.9829189
 KIND_MAP, KIND_MODEL, KIND_WALL, KIND_SKY = 0, 1, 2, 3
-PALLAS_MAX_BOUND = 65536  # beyond it the JAX package streams the soup through K5
-T_CULL = 4096  # post-cull live-triangle cap of the kernel route
+PALLAS_MAX_BOUND = 65536  # beyond it the soup streams through K5
+T_CULL = 4096  # post-cull live-triangle cap of the tile route
+CLIP_CAP = 2048  # big route: near-plane-crossing rows clipped per env
 REVEAL_TILE_FRAC = 8  # compacted reveal shade budget: num_tiles // 8 tiles
 RTILE_H, RTILE_W = K4.TILE_H, K4.TILE_W
 NEAR_W = 0.01
@@ -211,15 +222,13 @@ def _concat_parts(parts):
 
 
 def _resolve_backend(height, width, bundle):
-    """The kernel route is the only one: raise for what it does not take."""
-    if bundle.live_tri_bound > PALLAS_MAX_BOUND:
-        raise NotImplementedError(
-            f"live_tri_bound {bundle.live_tri_bound} > {PALLAS_MAX_BOUND}: this needs the streamed "
-            "raster kernel K5 (ops/raster_tiles_big.py::raster_tiles_big), not ported yet")
+    """The route: "tiles" (K4) up to PALLAS_MAX_BOUND live triangles, "big"
+    (K5) above; raise for frames that are not whole tiles."""
     if height % RTILE_H or width % RTILE_W:
         raise NotImplementedError(
             f"{height}x{width} is not whole {RTILE_H}x{RTILE_W} tiles: the XLA pass 1 "
-            "(_pass1_xla, _attrs_from_winner) that takes such frames is not ported")
+            "(_pass1_xla) that takes such frames is not ported")
+    return "big" if bundle.live_tri_bound > PALLAS_MAX_BOUND else "tiles"
 
 
 def _tile_pack(a, order_c, nty, ntx):
@@ -300,8 +309,44 @@ def _shade_generic(bundle, state, pass_data, gxx, gyy, mipmaps):
     return rgb, disc & has & (kind != KIND_SKY)
 
 
-def _pass_data_of(raw):
-    """The 12 kernel planes as the per-pixel attribute tuple."""
+def _attrs_from_winner(vattr36, enc, winner, gxx, gyy):
+    """The per-pixel attribute tuple from a winner-id image [B, ...] of any
+    shape (full frame or packed tiles): gather the winner's row of the
+    flattened vertex table vattr36 [B, T, 36] (vertex-major 3 x 12: sx, sy,
+    1/w, z, uv, lmuv, rgba) and interpolate perspective-correct at the
+    pixel centres gxx, gyy, in the order of K4's in-kernel interpolation."""
+    b = winner.shape[0]
+    has = winner >= 0
+    bi = torch.arange(b, device=winner.device).reshape(b, *([1] * (winner.ndim - 1)))
+    widx = winner.clamp_min(0).long()
+    ga = vattr36[bi, widx].reshape(*winner.shape, 3, 12)
+    g = lambda k, ch: ga[..., k, ch]
+
+    def edge_at(i, j):
+        return (g(j, 0) - g(i, 0)) * (gyy - g(i, 1)) - (g(j, 1) - g(i, 1)) * (gxx - g(i, 0))
+
+    e0, e1, e2 = edge_at(0, 1), edge_at(1, 2), edge_at(2, 0)
+    denom = e0 + e1 + e2
+    denom = torch.where(denom.abs() > 1e-9, denom, 1e-9)
+    b0, b1, b2 = e1 / denom, e2 / denom, e0 / denom
+    iw0, iw1, iw2 = g(0, 2), g(1, 2), g(2, 2)
+    iw = b0 * iw0 + b1 * iw1 + b2 * iw2
+    pw = 1.0 / torch.clamp_min(iw, 1e-12)
+    bw0, bw1, bw2 = b0 * iw0, b1 * iw1, b2 * iw2
+    interp = lambda ch: (bw0 * g(0, ch) + bw1 * g(1, ch) + bw2 * g(2, ch)) * pw
+    uv = torch.stack([interp(4), interp(5)], -1)
+    lmuv = torch.stack([interp(6), interp(7)], -1)
+    color = torch.stack([interp(8), interp(9), interp(10), interp(11)], -1)
+    frag_depth = (b0 * g(0, 3) + b1 * g(1, 3) + b2 * g(2, 3)) * pw
+    return has, winner, uv, lmuv, color, frag_depth, enc[bi, widx]
+
+
+def _pass_data_of(route, raw, vattr36, enc, gxx, gyy):
+    """A pass's raw output as the per-pixel attribute tuple: on the tile
+    route the 12 kernel planes, on the big route the winner image, whose
+    attributes are gathered and interpolated here."""
+    if route == "big":
+        return _attrs_from_winner(vattr36, enc, raw, gxx, gyy)
     (_zb, winner, frag_depth, uv_u, uv_v, lm_u, lm_v, col_r, col_g, col_b, col_a, genc) = raw
     has = winner >= 0
     uv = torch.stack([uv_u, uv_v], -1)
@@ -330,10 +375,11 @@ def _fog_rgb(state):
 
 def _finish_reveal_full(bundle, ctx, state, height, width, mipmaps):
     """Overflow fallback: shade the reveal pass over the full frame from
-    the carried pass-2 kernel planes."""
+    the carried pass-2 output (the kernel planes, or the winner image and
+    the vertex table on the big route)."""
     b = ctx["rgb1"].shape[0]
     gx, gy = (g.expand(b, height, width) for g in _pixel_grid(height, width, ctx["rgb1"].device))
-    p2 = _pass_data_of(ctx["raw2"])
+    p2 = _pass_data_of(ctx["route"], ctx["raw2"], ctx["vattr36"], ctx["enc"], gx, gy)
     rgb2, disc2 = _shade_generic(bundle, state, p2, gx, gy, mipmaps)
     layer2 = torch.where((p2[0] & ~disc2)[..., None], rgb2, _fog_rgb(state)[:, None, None, :])
     return _combine_layers(ctx["rgb1"], ctx["disc1"], ctx["has1"], layer2)
@@ -367,7 +413,7 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
     """The batch's pipeline. Returns (rgb, reveal_overflow [B], ctx): ctx is
     None when the map has no alpha content; otherwise rgb has the
     tile-compacted reveal, and ctx carries what _finish_reveal_full needs."""
-    _resolve_backend(height, width, bundle)
+    route = _resolve_backend(height, width, bundle)
     vp, cam_pos = camera_matrix(cmap, state, width, height, fov_deg)
     parts = gather_triangles(bundle, cmap, state, camera_pos_hint=cam_pos)
     b = cam_pos.shape[0]
@@ -402,7 +448,8 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
         [(pos[..., 0] * m(i, 0) + pos[..., 1] * m(i, 1)) + (pos[..., 2] * m(i, 2) + m(i, 3))
          for i in range(4)], -1)  # [B, T, 3, 4]
 
-    # ---- pre-clip cull + compaction (stable order) ----
+    # ---- pre-clip cull + compaction (stable order; none on the big route,
+    # where K5's bbox tests skip the dead rows) ----
     w0 = clip[..., 3]
     any_pos = (w0 > 0.01).any(-1)
     all_pos = (w0 > 0.01).all(-1)
@@ -414,7 +461,7 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
     front0 = (area0 < 0.0) | tri["twosided"]
     keep = tri["valid"] & any_pos & (~all_pos | (front0 & (area0.abs() > 1e-9)))
     t = keep.shape[1]
-    cap = min(t, T_CULL)
+    cap = min(t, T_CULL) if route == "tiles" else t
     if cap < t:
         ids = torch.arange(t, dtype=torch.int32, device=dev)
         order = torch.sort(torch.where(keep, ids, t), dim=1).values[:, :cap]
@@ -427,7 +474,10 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
         tri["valid"] = keep
 
     # ---- near-plane clipping: 1 triangle -> up to 2 ----
-    clip, tri = _clip_near(clip, tri)
+    if route == "tiles":
+        clip, tri = _clip_near(clip, tri)
+    else:
+        clip, tri = _clip_near_compact(clip, tri, min(CLIP_CAP, clip.shape[1]))
     w = clip[..., 3]
     ok_w = (w > 1e-5).all(-1)
     inv_w = 1.0 / torch.where(w.abs() > 1e-9, w, 1e-9)
@@ -462,23 +512,38 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
     enc = ((tri["tex"] + 1) | (tri["kind"] << 12) | (tri["shaded"].to(torch.int32) << 14)
            | (lod_q << 15) | fw)  # < 2^23: exact in f32
 
-    t_act = sx.shape[1]
-    tri48 = torch.cat([
-        torch.stack([sx, sy], -1).reshape(b, t_act, 6),
-        sz,
-        torch.arange(t_act, dtype=torch.float32, device=dev).expand(b, t_act)[..., None],
-        inv_w,
-        tri["uv"].reshape(b, t_act, 6),
-        tri["lmuv"].reshape(b, t_act, 6),
-        tri["color"].reshape(b, t_act, 12),
-        enc.float()[..., None],
-        torch.zeros((b, t_act, K4.N_COLS - 38), device=dev),
-    ], -1).contiguous()
-    idx, cnt = K4.bin_triangles(sx, sy, tri_ok, height, width)
-
     gx, gy = (g.expand(b, height, width) for g in _pixel_grid(height, width, dev))
-    raw1 = K4.raster_tiles(tri48, idx, cnt, height, width)
-    p1 = _pass_data_of(raw1)
+    if route == "tiles":
+        t_act = sx.shape[1]
+        tri48 = torch.cat([
+            torch.stack([sx, sy], -1).reshape(b, t_act, 6),
+            sz,
+            torch.arange(t_act, dtype=torch.float32, device=dev).expand(b, t_act)[..., None],
+            inv_w,
+            tri["uv"].reshape(b, t_act, 6),
+            tri["lmuv"].reshape(b, t_act, 6),
+            tri["color"].reshape(b, t_act, 12),
+            enc.float()[..., None],
+            torch.zeros((b, t_act, K4.N_COLS - 38), device=dev),
+        ], -1).contiguous()
+        idx, cnt = K4.bin_triangles(sx, sy, tri_ok, height, width)
+        vattr36 = None
+
+        def z_pass(exclude=None, gate=None):
+            return K4.raster_tiles(tri48, idx, cnt if gate is None else torch.where(gate, cnt, 0).contiguous(),
+                                   height, width, exclude=exclude)
+    else:
+        trit, cbox, scb = _big_table(sx, sy, sz, tri_ok)
+        # the attributes of the winners, gathered afterwards: [B, T, 36]
+        vattr36 = torch.cat([sx[..., None], sy[..., None], inv_w[..., None], sz[..., None],
+                             tri["uv"], tri["lmuv"], tri["color"]], -1).reshape(b, sx.shape[1], 36)
+
+        def z_pass(exclude=None, gate=None):
+            tile_on = None if gate is None else gate.reshape(b, -1).to(torch.int32)
+            return K5.raster_tiles_big(trit, cbox, scb, height, width, exclude=exclude, tile_on=tile_on)[1]
+
+    raw1 = z_pass()
+    p1 = _pass_data_of(route, raw1, vattr36, enc, gx, gy)
     has1, win1 = p1[0], p1[1]
     rgb, disc1 = _shade_generic(bundle, state, p1, gx, gy, mipmaps)
     fog_rgb = _fog_rgb(state)
@@ -490,8 +555,7 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
     ex_img = torch.where(disc1, win1, -1).contiguous()
     nty, ntx = height // RTILE_H, width // RTILE_W
     disc_tile = disc1.reshape(b, nty, RTILE_H, ntx, RTILE_W).any(4).any(2)
-    cnt2 = torch.where(disc_tile, cnt, 0).contiguous()
-    raw2 = K4.raster_tiles(tri48, idx, cnt2, height, width, exclude=ex_img)
+    raw2 = z_pass(ex_img, disc_tile)
 
     # tile-compacted pass-2 shade over a budget of K tiles per env
     nt = nty * ntx
@@ -505,13 +569,64 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
     order = order[:, :k_budget]  # slot k_budget took every tile past the budget
     order_c = order.clamp_max(nt - 1)
     pk = lambda a: _tile_pack(a, order_c, nty, ntx)
-    p2p = _pass_data_of(tuple(pk(o) for o in raw2))
-    rgb2p, disc2p = _shade_generic(bundle, state, p2p, pk(gx), pk(gy), mipmaps)
+    gxp, gyp = pk(gx), pk(gy)
+    raw2p = tuple(pk(o) for o in raw2) if route == "tiles" else pk(raw2)
+    p2p = _pass_data_of(route, raw2p, vattr36, enc, gxp, gyp)
+    rgb2p, disc2p = _shade_generic(bundle, state, p2p, gxp, gyp, mipmaps)
     layer2p = torch.where((p2p[0] & ~disc2p)[..., None], rgb2p, _per_env(fog_rgb, rgb2p[..., 0]))
     layer2_img = _tile_unpack(layer2p, order, nty, ntx, fog_rgb)
     rgb_cmp = _combine_layers(rgb, disc1, has1, layer2_img)
-    ctx = dict(rgb1=rgb, disc1=disc1, has1=has1, raw2=raw2)
+    ctx = dict(route=route, rgb1=rgb, disc1=disc1, has1=has1, raw2=raw2, vattr36=vattr36, enc=enc)
     return rgb_cmp, overflow, ctx
+
+
+def _big_table(sx, sy, sz, tri_ok):
+    """The big route's table: per-row screen bboxes (dead rows +-1e30, so
+    they overlap no tile), every column padded to a multiple of T_CHK rows,
+    the fields-major trit [B, 16, T] (ops/raster_tiles_big.py layout) and
+    its chunk and subchunk bbox unions [B, NC, 4] and [B, NC * 64, 4]."""
+    b, t = sx.shape[:2]
+    pad = (-t) % K5.T_CHK
+    dead = lambda fill: torch.full((b, pad), fill, dtype=torch.float32, device=sx.device)
+    padc = lambda col, fill: torch.cat([col, dead(fill)], 1) if pad else col
+    okf = lambda col, fill: padc(torch.where(tri_ok, col, fill), fill)
+    bxmin, bxmax = okf(sx.amin(-1), K5.DEAD), okf(sx.amax(-1), -K5.DEAD)
+    bymin, bymax = okf(sy.amin(-1), K5.DEAD), okf(sy.amax(-1), -K5.DEAD)
+    zero = torch.zeros_like(bxmin)
+    trit = torch.stack([
+        padc(sx[..., 0], 0.0), padc(sy[..., 0], 0.0), padc(sx[..., 1], 0.0), padc(sy[..., 1], 0.0),
+        padc(sx[..., 2], 0.0), padc(sy[..., 2], 0.0),
+        padc(sz[..., 0], 0.0), padc(sz[..., 1], 0.0), padc(sz[..., 2], 0.0), zero,
+        bxmin, bxmax, bymin, bymax, zero, zero,
+    ], 1)
+    cbox = K5.level_bboxes(bxmin, bxmax, bymin, bymax, K5.T_CHK)
+    scb = K5.level_bboxes(bxmin, bxmax, bymin, bymax, K5.SUB)
+    return trit, cbox, scb
+
+
+def _clip_near_compact(clip, tri, cap, near_w=NEAR_W):
+    """The big route's near-plane clip: rows wholly in front of the plane
+    keep their row, unchanged; the rows that cross it are compacted, in
+    increasing row order, into `cap` slots (past `cap` they drop), clipped
+    by `_clip_near` and appended as 2 * cap extension rows: [B, T, 3, 4]
+    -> [B, T + 2 cap, 3, 4]. The compaction is a cumsum and a scatter,
+    not a sort."""
+    b, t = clip.shape[:2]
+    dev = clip.device
+    n_in = (clip[..., 3] > near_w).sum(-1)
+    crossing = tri["valid"] & (n_in > 0) & (n_in < 3)
+    dest = torch.cumsum(crossing, dim=1) - 1
+    dest = torch.where(crossing & (dest < cap), dest, cap)
+    order = torch.full((b, cap + 1), t, dtype=torch.int64, device=dev)
+    order.scatter_(1, dest, torch.arange(t, device=dev).expand(b, t))
+    order = order[:, :cap]  # slot cap took every row that is not kept
+    safe = order.clamp_max(t - 1)
+    bi = torch.arange(b, device=dev)[:, None]
+    tri_c = {k: v[bi, safe] for k, v in tri.items()}
+    tri_c["valid"] = tri_c["valid"] & (order < t)
+    clip_x, tri_x = _clip_near(clip[bi, safe], tri_c, near_w)
+    tri_out = dict(tri, valid=tri["valid"] & (n_in == 3))
+    return torch.cat([clip, clip_x], 1), {k: torch.cat([tri_out[k], v], 1) for k, v in tri_x.items()}
 
 
 def _clip_near(clip, tri, near_w=NEAR_W):

@@ -12,12 +12,14 @@ Phases (any failure exits non-zero and prints no result line):
      (K3) likewise on the inputs a 4096-env tick of arena_bodies hands it
      (every body awake, the hull bodies present); then the tile-raster
      kernel (K4) on the inputs one 64-env 256 x 256 render_batch of
-     arena_lit hands it, for pass 1 and for the reveal pass;
+     arena_lit hands it, for pass 1 and for the reveal pass; then the
+     streamed raster kernel (K5) likewise on arena_orb (82,568 live
+     triangles: the big route, on which K4 never launches);
   4. reference checks: 30 ticks at 256 envs of each tick map on the card
      against the same ticks run by the plain versions on the CPU; then 4
-     arena_lit envs after 30 ticks rendered at 256 x 256 on the card
-     against the plain path on the CPU (at most 0.2% of pixels off by more
-     than 1/255);
+     envs after 30 ticks, one per sweep heading, rendered at 256 x 256 on
+     the card against the plain path on the CPU (at most 0.2% of pixels off
+     by more than 1/255), of arena_lit and of arena_orb;
   5. main paths, each with every kernel's launch counter reset just before
      and read just after: load_map -> reset_batch(4096) -> rollout of 240
      ticks of the bench.py stream (hold W, look += 0.01), first on arena
@@ -26,7 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
      the render path: load_map + load_bundle of arena_lit ->
      reset_batch(64) -> 60 ticks of the stream -> the 4-heading yaw sweep
      of benchmarks/run_all.py::bench_render at 256 x 256, once as warm-up
-     and once timed (K4 twice per frame batch: pass 1 and the reveal).
+     and once timed (K4 twice per frame batch: pass 1 and the reveal);
+     then the same render path on arena_orb (K5 twice per frame batch, K4
+     never).
 The last three lines are the card's name and power limit, a JSON object
 with each kernel's launches, error, times and bound, and
 {"ok": true, "device": {...}}.
@@ -44,7 +48,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BATCH, TICKS = 4096, 240
 TOL = 1e-5
-KERNELS = ("capsule_resolve", "ray_tris", "body_contacts", "raster_tiles")
+KERNELS = ("capsule_resolve", "ray_tris", "body_contacts", "raster_tiles", "raster_tiles_big")
 # the render main path: bench_render's batch, size and sweep
 RENDER_BATCH, SIZE, HEADINGS, RENDER_TICKS = 64, 256, 4, 60
 FRAME_BAR = 0.002  # share of pixels that may differ by more than 1/255
@@ -63,6 +67,26 @@ K3_BOX_PAIR_FLOPS, K3_VERTEX_FLOPS = 256, 7
 # functions, denominator, affine z, the compares); the winner's attributes
 # ~80 once per covered pixel (barycentrics, 1/w, eight interpolations)
 K4_PAIR_FLOPS, K4_PIXEL_FLOPS = 40, 80
+# K5: the same z test per (pixel, row) pair whose row's bbox overlaps the
+# pixel's tile; no attributes
+K5_PAIR_FLOPS = 40
+
+
+def kernel_modules():
+    """{kernel name: its ops module}; each module counts its launches."""
+    from c_game_engine_tpu_torch.ops import body_contacts, capsule_resolve, raster_tiles, raster_tiles_big, ray_tris
+
+    return {"capsule_resolve": capsule_resolve, "ray_tris": ray_tris, "body_contacts": body_contacts,
+            "raster_tiles": raster_tiles, "raster_tiles_big": raster_tiles_big}
+
+
+def reset_counts():
+    for m in kernel_modules().values():
+        m.launches = 0
+
+
+def read_counts():
+    return {k: m.launches for k, m in kernel_modules().items()}
 
 
 def card_line() -> str:
@@ -95,12 +119,20 @@ def bound_ms(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def listed_chunk_bytes(idx, cnt):
-    """Bytes of the distinct 32-triangle chunks (2 KB each) some block lists."""
+def distinct_listed(idx, cnt, env_rows=0):
+    """How many distinct entries the lists idx [..., L] (first cnt [...]
+    valid) hold; with env_rows > 0 the first axis is the env and each env
+    lists rows of its own table of env_rows rows."""
     import torch
 
     listed = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None]
-    return int(torch.unique(idx[listed]).numel()) * 32 * 16 * 4
+    env = torch.arange(idx.shape[0], device=idx.device).view(-1, *([1] * (idx.ndim - 1)))
+    return int(torch.unique((idx.long() + env * env_rows)[listed]).numel())
+
+
+def listed_chunk_bytes(idx, cnt):
+    """Bytes of the distinct 32-triangle chunks (2 KB each) some block lists."""
+    return distinct_listed(idx, cnt) * 32 * 16 * 4
 
 
 def k1_bound(args):
@@ -292,10 +324,6 @@ def main_path(cmap, label):
     import torch
 
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
-    from c_game_engine_tpu_torch.ops import body_contacts as K3
-    from c_game_engine_tpu_torch.ops import capsule_resolve as K1
-    from c_game_engine_tpu_torch.ops import ray_tris as K2
-    from c_game_engine_tpu_torch.ops import raster_tiles as K4
     from c_game_engine_tpu_torch.physics import bodies
 
     acts = bench_actions(TICKS, BATCH, "cuda")
@@ -303,14 +331,13 @@ def main_path(cmap, label):
     torch.cuda.synchronize()
     state = reset_batch(cmap, BATCH)
     torch.cuda.synchronize()
-    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    reset_counts()
     bodies.active_ticks = 0
     t0 = time.perf_counter()
     state = rollout(cmap, state, acts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"capsule_resolve": K1.launches, "ray_tris": K2.launches, "body_contacts": K3.launches,
-              "raster_tiles": K4.launches}
+    counts = read_counts()
     gate = bodies.active_ticks
 
     from c_game_engine_tpu_torch.core.state import tree_leaves
@@ -349,50 +376,107 @@ def k4_bound(args, kwargs, planes):
     """Bytes: the listed rows' 38 columns, the listed ids, the counts, the
     exclude image and the 12 planes; operations: the z test of every
     listed (pixel, triangle) pair and one attribute interpolation per
-    covered pixel."""
-    import torch
-
+    covered pixel. Returns (ms, bound by, what the print adds)."""
     from c_game_engine_tpu_torch.ops import raster_tiles as K4
 
     tri48, idx, cnt, h, w = args
     b, t = tri48.shape[:2]
-    listed = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None]
-    rows = idx.long() + torch.arange(b, device=idx.device)[:, None, None, None] * t
-    n_rows = int(torch.unique(rows[listed]).numel())
+    n_rows = distinct_listed(idx, cnt, t)
     n_listed = int(cnt.sum())
     pairs = n_listed * K4.TILE_H * K4.TILE_W
     covered = int((planes[1] >= 0).sum())
     pixels = b * h * w
     nbytes = n_rows * 38 * 4 + n_listed * 4 + cnt.numel() * 4 + pixels * 4 + 12 * pixels * 4
-    return bound_ms(K4_PAIR_FLOPS * pairs + K4_PIXEL_FLOPS * covered, nbytes)
+    return (*bound_ms(K4_PAIR_FLOPS * pairs + K4_PIXEL_FLOPS * covered, nbytes),
+            f"T {t}, {n_listed} listed, largest tile list {int(cnt.max())}")
 
 
-def render_kernel_phase(cmap, bundle, state):
-    """K4 against its plain version on the inputs one 64-env render_batch
-    hands it: pass 1 and the reveal pass."""
-    import torch
+def k5_bound(args, kwargs, planes):
+    """Bytes: the 14 columns of the rows whose bbox overlaps an enabled
+    tile, tile_on (if given), the exclude ids of the enabled tiles' pixels
+    (none without an exclude image) and the two output planes; operations:
+    the z test of every (pixel, row) pair whose row overlaps the pixel's
+    enabled tile. The chunk and subchunk boxes only prune, so the function
+    needs none of their bytes. Returns (ms, bound by, what the print
+    adds)."""
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
 
-    from c_game_engine_tpu_torch.ops import raster_tiles as K4
+    trit, cbox, scb, h, w = args
+    tile_on, exclude = kwargs.get("tile_on"), kwargs.get("exclude")
+    b, _, t = trit.shape
+    idx, cnt = K5.tile_lists(trit, h, w, tile_on)
+    n_rows = distinct_listed(idx, cnt, t)
+    pairs = int(cnt.sum()) * K5.TILE_H * K5.TILE_W
+    pixels = b * h * w
+    on_pixels = pixels if tile_on is None else int((tile_on != 0).sum()) * K5.TILE_H * K5.TILE_W
+    nbytes = (n_rows * 14 * 4 + (0 if tile_on is None else tile_on.numel() * 4)
+              + (0 if exclude is None else on_pixels * 4) + 2 * pixels * 4)
+    live = int((trit[:, 10] <= trit[:, 11]).sum())
+    return (*bound_ms(K5_PAIR_FLOPS * pairs, nbytes),
+            f"T {t}, NC {cbox.shape[1]}, {live} live rows, {n_rows} hit rows, {pairs} hit pairs")
+
+
+def capture_passes(module, fn_name, cmap, bundle, state):
+    """Run one SIZE x SIZE render_batch with module.fn_name wrapped and
+    return the (args, kwargs) of each of its calls, and the launches of
+    every kernel during it."""
     from c_game_engine_tpu_torch.render.raster import render_batch
 
-    seen, kernel = [], K4.raster_tiles
+    seen, kernel = [], getattr(module, fn_name)
 
     def rec(*a, **k):
         seen.append((a, k))
         return kernel(*a, **k)
 
-    K4.raster_tiles = rec
+    before = read_counts()
+    setattr(module, fn_name, rec)
     try:
         render_batch(bundle, cmap, state, SIZE, SIZE)
     finally:
-        K4.raster_tiles = kernel
-    if len(seen) != 2:
-        raise AssertionError(f"one render_batch launched K4 {len(seen)} times, expected 2")
+        setattr(module, fn_name, kernel)
+    return seen, {k: v - before[k] for k, v in read_counts().items()}
+
+
+def raster_passes(tag, kernel, plain, seen, compare, bound):
+    """Each captured pass (pass 1, the reveal) through the kernel and its
+    plain version on the same inputs: compare(label, kernel's, plain's)
+    raises on a disagreement and returns the largest error; then both are
+    timed (the kernel over 20 calls, the plain version over 5) and
+    bound(args, kwargs, kernel's) gives the bound. Returns the fields of
+    the kernel's entry in the kernels line."""
+    import torch
+
     out, worst = {}, 0.0
     for label, (a, k) in zip(("pass1", "reveal"), seen):
-        pk = K4.raster_tiles(*a, **k)
-        pp = K4.raster_tiles_plain(*a, **k)
+        got = kernel(*a, **k)
+        want = plain(*a, **k)
         torch.cuda.synchronize()
+        err = compare(label, got, want)
+        worst = max(worst, err)
+        ms = (cuda_time(lambda: kernel(*a, **k)), cuda_time(lambda: plain(*a, **k), reps=5))
+        b_ms, b_by, note = bound(a, k, got)
+        out[label] = (ms, b_ms, b_by)
+        print(f"{tag} {label} ({a[0].shape[0]} envs x {SIZE}x{SIZE}, {note}): kernel {ms[0]:.4f} ms, "
+              f"plain {ms[1]:.4f} ms, max abs err {err:.3g}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    (ms, b_ms, b_by), (ms2, b2, _) = out["pass1"], out["reveal"]
+    return {"max_abs_err": worst, "ms": ms[0], "plain_ms": ms[1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_reveal": ms2[0], "plain_ms_reveal": ms2[1], "bound_ms_reveal": b2}
+
+
+def render_kernel_phase(cmap, bundle, state):
+    """K4 against its plain version on the inputs one 64-env render_batch
+    hands it: pass 1 and the reveal pass. Winner and enc planes equal,
+    float planes infinite alike and within TOL where finite."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import raster_tiles as K4
+
+    seen, _ = capture_passes(K4, "raster_tiles", cmap, bundle, state)
+    if len(seen) != 2:
+        raise AssertionError(f"one render_batch launched K4 {len(seen)} times, expected 2")
+
+    def compare(label, pk, pp):
         if not (torch.equal(pk[1], pp[1]) and torch.equal(pk[11], pp[11])):
             raise AssertionError(f"K4 ({label}) winner or enc planes differ from its plain version")
         err = 0.0
@@ -400,31 +484,53 @@ def render_kernel_phase(cmap, bundle, state):
             if g.is_floating_point():
                 if not torch.equal(torch.isinf(g), torch.isinf(p)):
                     raise AssertionError(f"K4 ({label}) empty pixels differ from its plain version")
-                fin = torch.isfinite(p)
-                err = max(err, float(torch.where(fin, g - p, 0.0).abs().max()))
+                err = max(err, float(torch.where(torch.isfinite(p), g - p, 0.0).abs().max()))
         if not err <= TOL:
             raise AssertionError(f"K4 ({label}) disagrees with its plain version: max err {err}")
-        worst = max(worst, err)
-        ms = (cuda_time(lambda: K4.raster_tiles(*a, **k)), cuda_time(lambda: K4.raster_tiles_plain(*a, **k), reps=5))
-        b_ms, b_by = k4_bound(a, k, pk)
-        cnt = a[2]
-        out[label] = (ms, b_ms, b_by)
-        print(f"K4 raster_tiles {label} ({a[0].shape[0]} envs x {SIZE}x{SIZE}, T {a[0].shape[1]}, "
-              f"{int(cnt.sum())} listed, largest tile list {int(cnt.max())}): kernel {ms[0]:.4f} ms, "
-              f"plain {ms[1]:.4f} ms, max abs err {err:.3g}, win/enc equal, bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
-    (ms, b_ms, b_by), (ms2, b2, _) = out["pass1"], out["reveal"]
+        return err
+
     return {"name": "raster_tiles", "route": "cuda",
             "source": "c_game_engine_tpu_torch/csrc/raster_tiles.cu",
             "replaces": "c_game_engine_tpu/ops/raster_tiles.py:182",
-            "max_abs_err": worst, "ms": ms[0], "plain_ms": ms[1],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "ms_reveal": ms2[0], "plain_ms_reveal": ms2[1], "bound_ms_reveal": b2}
+            **raster_passes("K4 raster_tiles", K4.raster_tiles, K4.raster_tiles_plain, seen, compare, k4_bound)}
 
 
-def render_reference_phase(cmap, bundle):
-    """4 envs after 30 ticks of the stream, each at its own sweep heading,
-    rendered on the card and by the plain path on the CPU."""
+def render_big_kernel_phase(cmap, bundle, state):
+    """K5 against its plain version on the inputs one 64-env render_batch
+    of a big-route map hands it: pass 1 and the reveal pass. Winner planes
+    equal, z equal where finite and infinite alike; K4 does not launch."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
+
+    seen, launched = capture_passes(K5, "raster_tiles_big", cmap, bundle, state)
+    if len(seen) != 2 or launched["raster_tiles"] != 0:
+        raise AssertionError(f"one render_batch launched K5 {len(seen)} times and K4 "
+                             f"{launched['raster_tiles']} times, expected 2 and 0")
+
+    def compare(label, got, want):
+        (zk, wk), (zp, wp) = got, want
+        if not torch.equal(wk, wp):
+            raise AssertionError(f"K5 ({label}) winner plane differs from its plain version "
+                                 f"at {int((wk != wp).sum())} pixels")
+        if not torch.equal(torch.isinf(zk), torch.isinf(zp)):
+            raise AssertionError(f"K5 ({label}) empty pixels differ from its plain version")
+        err = float(torch.where(torch.isfinite(zp), zk - zp, 0.0).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"K5 ({label}) z differs from its plain version: max err {err}")
+        return err
+
+    return {"name": "raster_tiles_big", "route": "cuda",
+            "source": "c_game_engine_tpu_torch/csrc/raster_tiles_big.cu",
+            "replaces": "c_game_engine_tpu/ops/raster_tiles_big.py:187",
+            **raster_passes("K5 raster_tiles_big", K5.raster_tiles_big, K5.raster_tiles_big_plain, seen,
+                            compare, k5_bound)}
+
+
+def render_reference_phase(name, cmap, bundle):
+    """4 envs of the map `name` after 30 ticks of the stream, each at its
+    own sweep heading, rendered on the card and by the plain path on the
+    CPU."""
     import math
 
     import torch
@@ -434,7 +540,7 @@ def render_reference_phase(cmap, bundle):
     from c_game_engine_tpu_torch.render.bundle import load_render_map
     from c_game_engine_tpu_torch.render.raster import render_batch
 
-    cm_cpu, rb_cpu = load_render_map("arena_lit", "cpu")
+    cm_cpu, rb_cpu = load_render_map(name, "cpu")
     st = rollout(cm_cpu, reset_batch(cm_cpu, HEADINGS), bench_actions(30, HEADINGS, "cpu"))
     st = st.replace(player=st.player.replace(
         yaw=st.player.yaw + torch.arange(HEADINGS) * (2.0 * math.pi / HEADINGS)))
@@ -443,8 +549,9 @@ def render_reference_phase(cmap, bundle):
     off = (gpu - cpu).abs().amax(-1) > 1 / 255
     share = float(off.float().mean())
     if not share <= FRAME_BAR or not bool(torch.isfinite(gpu).all()):
-        raise AssertionError(f"render: {int(off.sum())} pixels ({share:.4%}) differ from the CPU by more than 1/255")
-    print(f"reference render: {HEADINGS} envs x {SIZE}x{SIZE} on the card match the CPU plain path "
+        raise AssertionError(f"render {name}: {int(off.sum())} pixels ({share:.4%}) differ from the CPU "
+                             "by more than 1/255")
+    print(f"reference render {name}: {HEADINGS} envs x {SIZE}x{SIZE} on the card match the CPU plain path "
           f"({int(off.sum())} pixels, {share:.4%}, off by more than 1/255)", flush=True)
 
 
@@ -457,29 +564,26 @@ def coverage(frame):
     return float(((u8 - u8[0, 0]).abs().sum(-1) > 12).float().mean())
 
 
-def render_main_path(cmap, bundle, state):
+def render_main_path(cmap, bundle, state, kernel):
     """The sweep once as warm-up (coverage checked there, as bench_render
     does), then once timed with every launch counter reset just before and
-    read just after. Returns (counts, seconds, coverages)."""
+    read just after; `kernel` is the raster kernel of the map's route,
+    which must launch twice per frame batch, and the other none. Returns
+    (counts, seconds, coverages)."""
     import torch
 
-    from c_game_engine_tpu_torch.ops import body_contacts as K3
-    from c_game_engine_tpu_torch.ops import capsule_resolve as K1
-    from c_game_engine_tpu_torch.ops import ray_tris as K2
-    from c_game_engine_tpu_torch.ops import raster_tiles as K4
     from c_game_engine_tpu_torch.render.raster import render_batch, yaw_sweep
 
     states = yaw_sweep(state, HEADINGS)
     warm = [render_batch(bundle, cmap, s, SIZE, SIZE) for s in states]
     covs = [coverage(f[0]) for f in warm]
     torch.cuda.synchronize()
-    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     frames = [render_batch(bundle, cmap, s, SIZE, SIZE) for s in states]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"capsule_resolve": K1.launches, "ray_tris": K2.launches, "body_contacts": K3.launches,
-              "raster_tiles": K4.launches}
+    counts = read_counts()
     for k, (f, w) in enumerate(zip(frames, warm)):
         if f.shape != (RENDER_BATCH, SIZE, SIZE, 3) or not bool(torch.isfinite(f).all()):
             raise AssertionError(f"render heading {k}: frames {tuple(f.shape)} not finite")
@@ -487,8 +591,10 @@ def render_main_path(cmap, bundle, state):
             raise AssertionError(f"render heading {k}: the timed frames differ from the warm-up's")
     if min(covs) < 0.03:
         raise AssertionError(f"render: sweep non-sky coverage {covs} below 0.03")
-    if counts["raster_tiles"] != 2 * HEADINGS:
-        raise AssertionError(f"render: K4 launched {counts['raster_tiles']} times for {HEADINGS} frame batches")
+    other = ({"raster_tiles", "raster_tiles_big"} - {kernel}).pop()
+    if counts[kernel] != 2 * HEADINGS or counts[other] != 0:
+        raise AssertionError(f"render: {kernel} launched {counts[kernel]} times and {other} "
+                             f"{counts[other]} times for {HEADINGS} frame batches")
     return counts, dt, covs
 
 
@@ -517,6 +623,7 @@ def main() -> int:
     load = lambda name, dev: load_map(maps / f"{name}.npz", maps / f"{name}.json", dev)
     arena, bodies_map = load("arena", "cuda"), load("arena_bodies", "cuda")
     lit, lit_bundle = load_render_map("arena_lit", "cuda")
+    orb, orb_bundle = load_render_map("arena_orb", "cuda")
 
     # kernel phases on real states: a few ticks of the bench stream first
     state = rollout(arena, reset_batch(arena, BATCH), bench_actions(8, BATCH, "cuda"))
@@ -525,10 +632,13 @@ def main() -> int:
                                     bench_actions(1, BATCH, "cuda")[0]))
     lit_state = rollout(lit, reset_batch(lit, RENDER_BATCH), bench_actions(RENDER_TICKS, RENDER_BATCH, "cuda"))
     report.append(render_kernel_phase(lit, lit_bundle, lit_state))
+    orb_state = rollout(orb, reset_batch(orb, RENDER_BATCH), bench_actions(RENDER_TICKS, RENDER_BATCH, "cuda"))
+    report.append(render_big_kernel_phase(orb, orb_bundle, orb_state))
 
     reference_phase("arena", arena, load("arena", "cpu"))
     reference_phase("arena_bodies", bodies_map, load("arena_bodies", "cpu"))
-    render_reference_phase(lit, lit_bundle)
+    render_reference_phase("arena_lit", lit, lit_bundle)
+    render_reference_phase("arena_orb", orb, orb_bundle)
 
     # main paths
     by_path = {}
@@ -557,21 +667,24 @@ def main() -> int:
           f"on {card}; launches {counts}; body gate open on {gate} ticks; "
           f"final player pos {state.player.pos[0].tolist()}", flush=True)
 
-    counts, dt, covs = render_main_path(lit, lit_bundle, lit_state)
-    fps = RENDER_BATCH * HEADINGS / dt
-    by_path["render"] = {"counts": counts, "frames_per_s": fps, "coverage": covs}
-    print(f"main path render arena_lit: {HEADINGS} frame batches x {RENDER_BATCH} envs x {SIZE}x{SIZE} "
-          f"in {dt:.4f} s = {fps:.1f} frames/s on {card}; non-sky coverage by heading "
-          f"{[round(c, 4) for c in covs]}; launches {counts}", flush=True)
+    for path, name, cm, rb, st, kernel in (("render", "arena_lit", lit, lit_bundle, lit_state, "raster_tiles"),
+                                           ("render_orb", "arena_orb", orb, orb_bundle, orb_state,
+                                            "raster_tiles_big")):
+        counts, dt, covs = render_main_path(cm, rb, st, kernel)
+        fps = RENDER_BATCH * HEADINGS / dt
+        by_path[path] = {"counts": counts, "frames_per_s": fps, "coverage": covs}
+        print(f"main path render {name}: {HEADINGS} frame batches x {RENDER_BATCH} envs x {SIZE}x{SIZE} "
+              f"in {dt:.4f} s = {fps:.1f} frames/s on {card}; non-sky coverage by heading "
+              f"{[round(c, 4) for c in covs]}; launches {counts}", flush=True)
 
-    home = {"body_contacts": "arena_bodies", "raster_tiles": "render"}
+    home = {"body_contacts": "arena_bodies", "raster_tiles": "render", "raster_tiles_big": "render_orb"}
     for k in report:
         k["launches"] = by_path[home.get(k["name"], "arena")]["counts"][k["name"]]
         k["launches_by_path"] = {p: v["counts"][k["name"]] for p, v in by_path.items()}
     print(card)
     print(json.dumps({"kernels": report,
                       "steps_per_s": {p: v["steps_per_s"] for p, v in by_path.items() if "steps_per_s" in v},
-                      "frames_per_s": {"render": by_path["render"]["frames_per_s"]}}))
+                      "frames_per_s": {p: v["frames_per_s"] for p, v in by_path.items() if "frames_per_s" in v}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

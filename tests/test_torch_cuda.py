@@ -7,7 +7,8 @@ Each kernel is held against its plain PyTorch version on the same device:
 positions, velocities, ray t, contacts and the raster planes within 1e-5
 (the kernels are built with --fmad=false, so they round as the plain
 version does), `grounded`, hit/miss, the contact kernel's tie order and
-the raster kernel's winner ids and enc words exactly; a short rollout on
+the raster kernels' winner ids and K4's enc words exactly (K5's z planes
+too); a short rollout on
 the card is held to the CPU plain path with the slice bars of
 tests/test_torch_slice.py, and a render to the CPU's with the frame bar.
 The helpers are imported as top-level modules of tests/ (pytest puts the
@@ -151,3 +152,56 @@ def test_render_on_card_matches_cpu(cuda):
         assert k4.launches == before + (2 if dev.type == "cuda" else 0)
     err = (frames[0] - frames[1]).abs().amax(-1)
     assert float((err > 1 / 255).float().mean()) <= 0.002
+
+
+def _k5_args(cuda, seed, batch, h, t):
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as k5
+    from torch_inputs import k5_inputs
+
+    trit, excl = (torch.as_tensor(a, device=cuda) for a in k5_inputs(seed=seed, batch=batch, height=h, t=t))
+    bb = [trit[:, k] for k in (10, 11, 12, 13)]
+    return trit, k5.level_bboxes(*bb, k5.T_CHK), k5.level_bboxes(*bb, k5.SUB), excl
+
+
+@pytest.mark.parametrize("case", ["one_chunk", "two_chunks_gated", "no_exclude"])
+def test_raster_tiles_big_kernel_matches_plain(cuda, case):
+    """K5 on the card against its plain version on the inputs of the CPU
+    tests (b) and (c) of tests/test_torch_render_big.py (sparse live rows,
+    equal-z twins, degenerate and off-frame rows, an exclude image; the
+    second with two chunks, two envs and a gated tile; the third as the
+    second with no exclude image, as pass 1 calls it): winner and z planes
+    equal."""
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as k5
+
+    seed, batch, h, t = (3, 1, 8, 4096) if case == "one_chunk" else (4, 2, 32, 8192)
+    trit, cbox, scb, excl = _k5_args(cuda, seed, batch, h, t)
+    tile_on = torch.ones((batch, h // 8), dtype=torch.int32, device=cuda)
+    if case != "one_chunk":
+        tile_on[-1, -2] = 0
+    if case == "no_exclude":
+        excl = None
+    before = k5.launches
+    z, win = k5.raster_tiles_big(trit, cbox, scb, h, 128, exclude=excl, tile_on=tile_on)
+    assert k5.launches == before + 1
+    zp, wp = k5.raster_tiles_big_plain(trit, cbox, scb, h, 128, exclude=excl, tile_on=tile_on)
+    torch.cuda.synchronize()
+    assert torch.equal(win, wp) and torch.equal(z, zp)
+    assert float((win >= 0).float().mean()) > 0.3
+
+
+def test_raster_tiles_big_wrapper_raises(cuda):
+    """The K5 wrapper raises for a CPU tensor among CUDA ones, a wrong
+    dtype and a non-contiguous table, and launches nothing."""
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as k5
+
+    trit, cbox, scb, excl = _k5_args(cuda, 3, 1, 8, 4096)
+    before = k5.launches
+    with pytest.raises(ValueError, match="one device"):
+        k5.raster_tiles_big(trit, cbox.cpu(), scb, 8, 128, exclude=excl)
+    with pytest.raises(TypeError):
+        k5.raster_tiles_big(trit.double(), cbox, scb, 8, 128, exclude=excl)
+    wide = torch.zeros((1, 16, 2 * trit.shape[2]), device=cuda)
+    wide[..., ::2] = trit
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.raster_tiles_big(wide[..., ::2], cbox, scb, 8, 128, exclude=excl)
+    assert k5.launches == before

@@ -1,14 +1,15 @@
 """The committed maps (c_game_engine_tpu_torch/maps/arena.*,
-arena_bodies.* and arena_lit.* with its render bundle arena_lit_bundle.*)
-equal a fresh export from the JAX package, so the fixtures the port's
-tests and chip_smoke.py load cannot go stale. Regenerate with
-`python tests/torch_export_map.py`."""
+arena_bodies.*, and arena_lit.* and arena_orb.* with their render bundles
+<name>_bundle.*) equal a fresh export from the JAX package, so the
+fixtures the port's tests and chip_smoke.py load cannot go stale.
+Regenerate with `python tests/torch_export_map.py [names]`."""
 
 from __future__ import annotations
 
 import json
 
 import numpy as np
+import pytest
 import torch
 
 from tests.torch_export_map import MAP_DIR, MAPS, map_to_numpy
@@ -67,18 +68,21 @@ def test_arena_bodies_meets_the_slice_requirements():
 
 def test_committed_arena_lit_equals_fresh_export():
     """The map and its render bundle (array leaves and static fields)."""
+    _assert_bundle_equals_fresh("arena_lit", MAPS["arena_lit"]())
+
+
+def _assert_bundle_equals_fresh(name, cmap):
     from c_game_engine_tpu.render.bundle import build_render_bundle
     from tests.torch_export_map import bundle_to_numpy
 
-    cmap = MAPS["arena_lit"]()
-    _assert_committed_equals_fresh("arena_lit", cmap)
+    _assert_committed_equals_fresh(name, cmap)
     leaves, static = bundle_to_numpy(build_render_bundle(cmap))
-    with np.load(MAP_DIR / "arena_lit_bundle.npz") as z:
+    with np.load(MAP_DIR / f"{name}_bundle.npz") as z:
         assert sorted(z.files) == sorted(leaves)
         for k, v in leaves.items():
             assert z[k].dtype == v.dtype and z[k].shape == v.shape, k
             np.testing.assert_array_equal(z[k], v, err_msg=k)
-    with open(MAP_DIR / "arena_lit_bundle.json") as f:
+    with open(MAP_DIR / f"{name}_bundle.json") as f:
         assert json.load(f) == static
 
 
@@ -104,3 +108,71 @@ def test_arena_lit_meets_the_slice_requirements():
     fallback = rb.tex_names.index("_generic_fallback")
     assert fallback in set(rb.map_tex.tolist())
     assert rb.lightmap.shape == (64, 64, 4) and float(rb.lightmap[..., 0].std()) > 0.05
+
+
+@pytest.fixture(scope="module")
+def orb_jax():
+    return MAPS["arena_orb"]()
+
+
+def test_committed_arena_orb_equals_fresh_export(orb_jax):
+    """The map and its render bundle (array leaves and static fields)."""
+    _assert_bundle_equals_fresh("arena_orb", orb_jax)
+
+
+def test_arena_orb_meets_the_slice_requirements():
+    """arena_lit (collision, actors, render content) plus one
+    STATIC_MODEL actor, which makes no physics body, carrying an
+    81,920-triangle model: the live-triangle bound exceeds the tile
+    route's 65,536 (so the big route and K5 run), alpha content and a sky
+    stay, and the model's triangles are in the Morton order of their
+    centroids that build_render_bundle gives a slot block of more than
+    4096 triangles."""
+    from c_game_engine_tpu.render.bundle import _morton3
+    from c_game_engine_tpu_torch.actors.defs import ActorClass
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+
+    cm, rb = load_render_map("arena_orb", "cpu")
+    lit, lit_rb = load_render_map("arena_lit", "cpu")
+    assert torch.equal(cm.tri16, lit.tri16)
+    assert cm.aux["actor_classes"] == lit.aux["actor_classes"] + [ActorClass.STATIC_MODEL.name]
+    assert cm.aux["num_dynamic"] == 0
+    assert rb.live_tri_bound > 65536 and rb.has_alpha
+    assert int(rb.sky_tex) >= 0 and torch.equal(rb.sky_pos, lit_rb.sky_pos)
+    assert torch.equal(rb.map_pos, lit_rb.map_pos)
+    assert rb.mdl_pos.shape[0] == 81920 and rb.mdl_actor_rows.numel() == 81920
+    keys = _morton3(rb.mdl_pos.numpy().mean(1))
+    assert (np.diff(keys.astype(np.int64)) >= 0).all()
+
+
+def test_arena_orb_rollout_matches_jax(orb_jax, tmp_path):
+    """reset and a 30-tick rollout of two envs on arena_orb (the scripted
+    stream of tests/torch_parity.py: coin, trigger, door, interact, fire)
+    on the port against the JAX package, at the bars of
+    tests/test_tpu_parity.py: player position 2e-3, other floats 5e-3,
+    everything else exact. The STATIC_MODEL class is new to the port's
+    tick."""
+    import jax
+
+    from c_game_engine_tpu.core.state import reset as j_reset_one
+    from c_game_engine_tpu.models.sim import reset_batch as j_reset
+    from c_game_engine_tpu.models.sim import rollout as j_rollout
+    from c_game_engine_tpu_torch.core.state import reset
+    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from tests.torch_parity import (
+        assert_leaves_match,
+        export_and_load,
+        jax_actions,
+        jax_leaves,
+        stream_batch,
+        torch_actions,
+        torch_leaves,
+    )
+
+    jc = orb_jax
+    tc = export_and_load(jc, tmp_path)
+    assert_leaves_match(jax_leaves(j_reset_one(jc)), torch_leaves(reset(tc)), default=0)
+    streams = stream_batch(30, 2)
+    js = jax.jit(lambda s, a: j_rollout(jc, s, a))(j_reset(jc, 2), jax_actions(*streams))
+    ts = rollout(tc, reset_batch(tc, 2), torch_actions(*streams))
+    assert_leaves_match(jax_leaves(js), torch_leaves(ts), {"player.pos": 2e-3})

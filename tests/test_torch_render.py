@@ -3,7 +3,7 @@ math, texture sampling, tile binning, the tile kernel K4's plain version
 (against the Pallas kernel in interpret mode), the near-plane clip, a
 whole `render_batch` of the arena_lit map, the compacted reveal pass, far
 geometry (hazard a of ROADMAP.md §3), the actor-model rows of the
-triangle soup, and the routes the port raises on. Inputs are made from
+triangle soup, and the frames the port raises on. Inputs are made from
 numpy seeds; the port reads the committed arena_lit files
 (tests/torch_export_map.py).
 
@@ -483,17 +483,15 @@ def test_gather_triangles_model_branch_matches_jax(lit):
 
 @pytest.mark.parametrize("case", ["beyond_k4_table", "not_whole_tiles"])
 def test_unported_routes_raise(lit, case):
-    """The kernel route is the port's only one: a bundle beyond 65,536 live
-    triangles (the JAX package's K5 route) and a frame that is not whole
-    8 x 128 tiles (its XLA pass 1) raise, naming what is missing."""
+    """A frame that is not whole 8 x 128 tiles (the JAX package's XLA pass
+    1, not ported) raises naming what is missing, on the tile route and on
+    the big route that a bundle beyond 65,536 live triangles takes (K5;
+    tests/test_torch_render_big.py renders that route)."""
     from c_game_engine_tpu_torch.models.sim import reset_batch
     from c_game_engine_tpu_torch.render.raster import render_batch
 
     cm, rb = lit
     st = reset_batch(cm, 1)
-    if case == "beyond_k4_table":
-        with pytest.raises(NotImplementedError, match="K5"):
-            render_batch(dataclasses.replace(rb, live_tri_bound=65537), cm, st, H, W)
-    else:
-        with pytest.raises(NotImplementedError, match="_pass1_xla"):
-            render_batch(rb, cm, st, 100, 128)
+    bundle = dataclasses.replace(rb, live_tri_bound=65537) if case == "beyond_k4_table" else rb
+    with pytest.raises(NotImplementedError, match="_pass1_xla"):
+        render_batch(bundle, cm, st, 100, 128)

@@ -1,6 +1,6 @@
-"""Build the asset-free `arena`, `arena_bodies` and `arena_lit` maps with
-the JAX compiler and export them as plain numpy/JSON files that the
-PyTorch port (`c_game_engine_tpu_torch`) loads without JAX.
+"""Build the asset-free `arena`, `arena_bodies`, `arena_lit` and
+`arena_orb` maps with the JAX compiler and export them as plain numpy/JSON
+files that the PyTorch port (`c_game_engine_tpu_torch`) loads without JAX.
 
 Usage (from the repo root, on the CPU):
 
@@ -8,10 +8,10 @@ Usage (from the repo root, on the CPU):
 
 writes `c_game_engine_tpu_torch/maps/<name>.npz` (every array leaf of the
 CompiledMap) and `<name>.json` (its `aux` dict, minus the AssetResolver)
-for the named maps (all by default); for `arena_lit` also
+for the named maps (all by default); for `arena_lit` and `arena_orb` also
 `<name>_bundle.npz` and `<name>_bundle.json` (the JAX RenderBundle's
-array leaves and static fields), and a summary of its render soup and
-per-tile list counts.
+array leaves and static fields), and a summary of what the sweep frames
+hand the raster kernel (render_summary).
 
 The arena is a 48 x 48 m floor tessellated into 1 m cells, with a stair
 run of 0.2 m risers up to a 0.8 m terrace, one ramp back down (the only
@@ -30,7 +30,8 @@ instead, tests/test_torch_bodies.py). Physboxes need `model/cube.gmdl`,
 which is not in this checkout: `StubResolver` stands in for it.
 
 `arena_lit` is the arena (same collision mesh and actors) with render
-content: see the arena_lit section below.
+content: see the arena_lit section below. `arena_orb` is arena_lit plus
+an 81,920-triangle model (the arena_orb section).
 """
 
 from __future__ import annotations
@@ -351,6 +352,7 @@ def _texture_pixels():
         "texture/actor/bluecoin.gtex": (_sprite(64, 16, (0.25, 0.45, 1.0), 4), False, False, False),
         "texture/actor/door.gtex": (door, False, True, True),
         "texture/actor/laser.gtex": (laser, True, False, True),
+        ORB_TEX: (_orb_texture(), True, True, True),
     }
 
 
@@ -384,7 +386,7 @@ def render_resolver():
     FLOOR_MAT and WALL_MAT resolve, STONE_MAT does not (the compiler then
     takes the fallback material, whose "_generic_fallback" texture is the
     checkerboard); the sky, floor, wall and actor textures are procedural;
-    the only model is the sky cube."""
+    the models are the sky cube and arena_orb's sphere."""
     from c_game_engine_tpu.assets.codecs import MapMaterial, ModelShader, Texture, checkerboard_fallback
     from c_game_engine_tpu.compiler.models import AssetResolver, ModelInfo
 
@@ -409,10 +411,13 @@ def render_resolver():
             return self._textures[rel]
 
         def model(self, rel):
-            if rel != "model/sky.gmdl":
-                raise ValueError(f"render_resolver has no model {rel!r}")
-            return ModelInfo(rel, _sky_model(), np.full(3, SKY_HALF, np.float32),
-                             np.zeros(3, np.float32), 1.0)
+            if rel == "model/sky.gmdl":
+                return ModelInfo(rel, _sky_model(), np.full(3, SKY_HALF, np.float32),
+                                 np.zeros(3, np.float32), 1.0)
+            if rel == ORB_MODEL:
+                return ModelInfo(rel, _orb_model(), np.full(3, ORB_RADIUS, np.float32),
+                                 np.zeros(3, np.float32), 1.0)
+            raise ValueError(f"render_resolver has no model {rel!r}")
 
     return RenderResolver(search_paths=())
 
@@ -514,6 +519,88 @@ def compile_arena_lit():
     return compile_map(gmap, name="arena_lit", resolver=render_resolver())
 
 
+# ---------------------------------------------------------------- arena_orb
+# arena_lit plus one `prop_model_static` actor (collision 0: no physics
+# body) carrying an icosphere of 81,920 triangles, so the live-triangle
+# bound exceeds the 65,536 of the tile-kernel route and the map renders
+# through the streamed kernel K5, as the shipped orb.gmap's 78k-triangle
+# hull model does. The sphere stands between the first two headings of
+# the bench_render sweep as seen after 60 ticks of the bench stream.
+
+ORB_MODEL = "model/orb.gmdl"
+ORB_TEX = "texture/orb.gtex"
+ORB_SUBDIV = 6  # 20 * 4**6 = 81,920 triangles
+ORB_RADIUS = 3.0
+ORB_POS = (2.0, 3.0, -9.5)
+
+
+def icosphere(subdiv):
+    """[20 * 4**subdiv, 3, 3] triangles of the unit icosphere, each wound
+    counter-clockwise seen from outside (the map's visible-side order)."""
+    p = (1.0 + 5.0 ** 0.5) / 2.0
+    v = np.array([[-1, p, 0], [1, p, 0], [-1, -p, 0], [1, -p, 0], [0, -1, p], [0, 1, p],
+                  [0, -1, -p], [0, 1, -p], [p, 0, -1], [p, 0, 1], [-p, 0, -1], [-p, 0, 1]], np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    faces = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4],
+                      [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8],
+                      [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]])
+    tris = v[faces]
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    for _ in range(subdiv):
+        a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+        ab, bc, ca = unit(a + b), unit(b + c), unit(c + a)
+        tris = np.stack([np.stack(t, 1) for t in ((a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca))], 1)
+        tris = tris.reshape(-1, 3, 3)
+    normal = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    inward = (normal * tris.mean(1)).sum(-1) < 0
+    tris[inward] = tris[inward][:, ::-1]
+    return tris
+
+
+def _orb_model():
+    """The icosphere as a one-LOD, one-slot model: unshared vertices with
+    spherical uv (4 repeats around, 2 pole to pole), white vertex colour
+    and the outward normal."""
+    from c_game_engine_tpu.assets.codecs import CollisionModelType, Model, ModelLod, ModelShader
+
+    unit = icosphere(ORB_SUBDIV).reshape(-1, 3)
+    u = 4.0 * (0.5 + np.arctan2(unit[:, 2], unit[:, 0]) / (2 * np.pi))
+    v = 2.0 * np.arccos(np.clip(unit[:, 1], -1.0, 1.0)) / np.pi
+    n = len(unit)
+    verts = np.concatenate([unit * ORB_RADIUS, u[:, None], v[:, None], np.ones((n, 4)), unit], 1)
+    lod = ModelLod(0.0, verts.astype(np.float32), [np.arange(n, dtype=np.uint32)])
+    return Model(
+        materials=[{"texture": ORB_TEX, "color": np.ones(4, np.float32), "shader": int(ModelShader.SHADED)}],
+        skins=np.zeros((1, 1), np.uint32), lods=[lod],
+        aabb_origin=np.zeros(3, np.float32), aabb_extents=np.full(3, ORB_RADIUS, np.float32),
+        collision_type=CollisionModelType.NONE,
+    )
+
+
+def _orb_texture():
+    """64 x 64 bands and meridians (repeat, filter and mipmaps in
+    _texture_pixels)."""
+    yy, xx = np.mgrid[0:64, 0:64].astype(np.float32)
+    band = ((yy // 8) % 2)[..., None]
+    meridian = (xx % 16 < 2)[..., None]
+    rgb = np.where(meridian, [0.9, 0.9, 0.85], np.where(band, [0.2, 0.55, 0.6], [0.75, 0.35, 0.2]))
+    return np.concatenate([rgb, np.ones((64, 64, 1))], -1).astype(np.float32)
+
+
+def orb_actor():
+    from tests.worldgen import P_byte, P_str, actor
+
+    return actor("prop_model_static", ORB_POS, params={"model": P_str(ORB_MODEL), "collision": P_byte(0)})
+
+
+def compile_arena_orb():
+    from c_game_engine_tpu.compiler.compile import compile_map
+
+    gmap = _arena_gmap(arena_actors() + [orb_actor()], render_sky=True, sky_texture=SKY_TEX,
+                       models=arena_render_models(), lightmap=arena_lightmap())
+    return compile_map(gmap, name="arena_orb", resolver=render_resolver())
+
+
 def bundle_to_numpy(rb):
     """(array leaves {name: ndarray}, static fields) of a JAX RenderBundle,
     as c_game_engine_tpu_torch/render/bundle.py::load_bundle reads them."""
@@ -538,35 +625,67 @@ def export_bundle(rb, npz_path, json_path):
 
 
 def render_summary(name):
-    """Soup size and the largest per-tile list count (K4's L_CAP is 512) of
-    each bench_render sweep frame (4 headings) at 256 x 256 and at the
-    tests' 128 x 128, at the spawn and after 60 ticks of the bench stream,
-    rendered by the port on the CPU from the committed files."""
+    """What each bench_render sweep frame (4 headings) hands the raster
+    kernel, at 256 x 256 and at the tests' 128 x 128, at the spawn and after
+    60 ticks of the bench stream, rendered by the port on the CPU from the
+    committed files. On the tile route: the largest per-tile list count
+    (K4's L_CAP is 512). On the big route: the soup rows, the chunks NC,
+    the live rows, the near-plane-crossing rows (CLIP_CAP keeps 2048), the
+    largest per-tile count of bbox-overlapping rows, and the share of
+    pixels whose pass-1 winner is an actor-model row."""
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
-    from c_game_engine_tpu_torch.ops import raster_tiles
+    from c_game_engine_tpu_torch.ops import raster_tiles, raster_tiles_big
+    from c_game_engine_tpu_torch.render import raster as R
     from c_game_engine_tpu_torch.render.bundle import load_render_map
-    from c_game_engine_tpu_torch.render.raster import render_batch, yaw_sweep
 
     cm, rb = load_render_map(name, "cpu")
+    big = rb.live_tri_bound > R.PALLAS_MAX_BOUND
     start = reset_batch(cm, 1)
-    seen, binner = [], raster_tiles.bin_triangles
+    seen = {}
+    binner, clipper = raster_tiles.bin_triangles, R._clip_near_compact
+    kernel, attrs = raster_tiles_big.raster_tiles_big, R._attrs_from_winner
 
-    def record(*a):
+    def record_bins(*a):
         out = binner(*a)
-        seen.append(int(out[1].max()))
+        seen["largest per-tile count"] = int(out[1].max())
         return out
 
-    raster_tiles.bin_triangles = record
+    def record_clip(clip, tri, cap):
+        n_in = (clip[..., 3] > R.NEAR_W).sum(-1)
+        seen["soup rows"] = clip.shape[1]
+        seen["crossing rows"] = int((tri["valid"] & (n_in > 0) & (n_in < 3)).sum())
+        return clipper(clip, tri, cap)
+
+    def record_k5(trit, cbox, scb, h, w, exclude=None, tile_on=None):
+        if tile_on is None:  # pass 1
+            seen["NC"] = trit.shape[2] // raster_tiles_big.T_CHK
+            seen["live rows"] = int((trit[:, 10] <= trit[:, 11]).sum())
+            seen["largest per-tile count"] = int(raster_tiles_big.tile_lists(trit, h, w)[1].max())
+        return kernel(trit, cbox, scb, h, w, exclude=exclude, tile_on=tile_on)
+
+    def record_attrs(vattr36, enc, winner, gxx, gyy):
+        out = attrs(vattr36, enc, winner, gxx, gyy)
+        if winner.shape == gxx.shape and "model share" not in seen:  # pass 1 (full frame)
+            kind = (out[6] >> 12) & 3
+            seen["model share"] = round(float((out[0] & (kind == R.KIND_MODEL)).float().mean()), 4)
+        return out
+
+    raster_tiles.bin_triangles, R._clip_near_compact = record_bins, record_clip
+    raster_tiles_big.raster_tiles_big, R._attrs_from_winner = record_k5, record_attrs
     try:
         for label, st in (("spawn", start), ("tick60", rollout(cm, start, bench_actions(60, 1, "cpu")))):
             for size in (256, 128):
-                cnts = []
-                for sk in yaw_sweep(st, 4):
-                    render_batch(rb, cm, sk, size, size)
-                    cnts.append(seen[-1])
-                print(f"{name} {label} {size}x{size}: largest per-tile count by heading {cnts}")
+                by_heading = []
+                for sk in R.yaw_sweep(st, 4):
+                    seen.clear()
+                    R.render_batch(rb, cm, sk, size, size)
+                    by_heading.append(dict(seen))
+                keys = by_heading[0].keys()
+                print(f"{name} {label} {size}x{size} by heading: "
+                      + "; ".join(f"{k} {[h[k] for h in by_heading]}" for k in keys))
     finally:
-        raster_tiles.bin_triangles = binner
+        raster_tiles.bin_triangles, R._clip_near_compact = binner, clipper
+        raster_tiles_big.raster_tiles_big, R._attrs_from_winner = kernel, attrs
     return rb.live_tri_bound
 
 
@@ -591,9 +710,10 @@ def export(cmap, npz_path, json_path):
         f.write("\n")
 
 
-MAPS = {"arena": compile_arena, "arena_bodies": compile_arena_bodies, "arena_lit": compile_arena_lit}
+MAPS = {"arena": compile_arena, "arena_bodies": compile_arena_bodies, "arena_lit": compile_arena_lit,
+        "arena_orb": compile_arena_orb}
 # maps exported with a render bundle
-RENDER_MAPS = ("arena_lit",)
+RENDER_MAPS = ("arena_lit", "arena_orb")
 
 
 def main(names):

@@ -166,3 +166,46 @@ def k4_inputs(seed, batch=2, height=32, width=256, t=120):
     exclude = rng.integers(0, t, (batch, height, width)).astype(np.int32)
     exclude[rng.random((batch, height, width)) > 0.33] = -1
     return tri48, sx.copy(), sy.copy(), tri_ok, exclude
+
+
+def k5_inputs(seed, batch=1, height=8, width=128, t=4096):
+    """A random fields-major table for the streamed kernel K5, per env:
+    trit [B, 16, T] (ops/raster_tiles_big.py layout) and exclude [B, H, W]
+    i32.
+
+    About one row in eight is live, and four runs of 64 rows (whole
+    subchunks) are dead throughout, so subchunk tests skip; dead rows carry
+    the +-1e30 bbox and garbage coordinates. Live rows are well-shaped
+    triangles of 5-60 px (see k4_inputs) at z from -0.1 to 1.1, with
+    degenerate rows (two coincident vertices), rows wholly off the frame,
+    and equal-z twins: rows with the geometry and z of the live row before
+    them, which must lose every pixel to it. A third of the pixels exclude
+    a random live id."""
+    rng = np.random.default_rng(seed)
+    trit = np.zeros((batch, 16, t), np.float32)
+    exclude = np.full((batch, height, width), -1, np.int32)
+    for b in range(batch):
+        live = rng.random(t) < 0.125
+        for s in rng.choice(t // 64, 4, replace=False):
+            live[s * 64:(s + 1) * 64] = False
+        c = np.stack([rng.uniform(-20, width + 20, t), rng.uniform(-10, height + 10, t)], -1)
+        ang = rng.uniform(0, 2 * np.pi, (t, 1)) + np.arange(3) * (2 * np.pi / 3) + rng.uniform(-0.5, 0.5, (t, 3))
+        rad = rng.uniform(5, 60, (t, 1)) * rng.uniform(0.7, 1.0, (t, 3))
+        v = c[:, None, :] + rad[..., None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+        z = rng.uniform(-0.1, 1.1, (t, 1)) + rng.uniform(-0.05, 0.05, (t, 3))
+        ids = np.nonzero(live)[0]
+        v[ids[:8], 2] = v[ids[:8], 0]  # degenerate
+        v[ids[8:12]] += [width + 70, 0]  # wholly off the frame
+        for k in ids[16:-1:10]:  # equal-z twins
+            v[k + 1], z[k + 1] = v[k], z[k]
+            live[k + 1] = True
+        v[~live] = rng.uniform(-1e3, 1e3, (int((~live).sum()), 3, 2))  # never read
+        trit[b, 0:6] = v.reshape(t, 6).T
+        trit[b, 6:9] = z.T
+        trit[b, 10] = np.where(live, v[..., 0].min(1), 1e30)
+        trit[b, 11] = np.where(live, v[..., 0].max(1), -1e30)
+        trit[b, 12] = np.where(live, v[..., 1].min(1), 1e30)
+        trit[b, 13] = np.where(live, v[..., 1].max(1), -1e30)
+        pick = rng.random((height, width)) < 0.33
+        exclude[b][pick] = rng.choice(np.nonzero(live)[0], int(pick.sum()))
+    return trit, exclude
