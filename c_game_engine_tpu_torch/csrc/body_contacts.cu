@@ -6,113 +6,61 @@
 // Replaces: c_game_engine_tpu/ops/body_contacts.py::body_contacts_pallas
 // (_kernel, _feature_active).
 //
-// What bounds it on an H100: arithmetic and latency, not bytes. Each awake
-// (lane, body) pair tests the ~100-200 triangles of its block's chunk list
-// at ~260 flops each (a closest-point projection, the support radius, the
-// barycentric edge test), plus ~7 flops per cloud vertex for hull bodies;
-// the inputs of one 4096-lane call are a few MB and every triangle row is
-// shared by the 128 threads of a block. The triangle table of a 5k-triangle
-// map (~330 KB) does not fit in the 227 KB of shared memory a block can
-// have, so it cannot stay resident the way the TPU kept it in VMEM.
+// What bounds it on an H100: instruction issue, not bytes. Each awake
+// (lane, body) pair tests the ~100 triangles of its block's chunk list at
+// ~260 flops each (a closest-point projection with 5 IEEE divisions, a
+// square root, the support radius, the barycentric edge test; built
+// without FMA), plus ~7 flops per cloud vertex for hull bodies; the inputs
+// of one 4096-lane call are a few MB and the ~330 KB triangle table of a
+// 5k-triangle map stays in L2. The serial kernel (one thread per (lane,
+// body), 32 rows a chunk one after another, a serial insertion per row)
+// already kept the rows' arithmetic SIMT-efficient, so the warp design
+// gains only what it saves around it: off pairs, the per-row insertion,
+// and latency hidden by many more warps. Registers and block shape do
+// not help (profile_contacts.py; PERF.md §6).
 //
-// Design: a grid of (B/128 env blocks) x (D bodies), 128 threads, one
-// thread per (lane, body). The block walks the body's compacted chunk list
-// for its env block (ops/chunk_compact.py, margin = the body's half-extent
-// diagonal + 0.35), staging each 32-triangle chunk (2 KB) in shared memory
-// for all 128 threads, which then read the same row (a broadcast). The
-// body's vertex cloud sits in shared memory too; its `is_box` flag picks
-// the closed form per body, as the TPU kernel's compile-time tuple did.
-// Each thread keeps its contacts in registers, in the TPU kernel's two
-// levels: the chunk's top 4 (a stable insertion of its 32 rows, so an
-// earlier row wins a tie: the TPU's repeated first-row max), then those
-// four, deepest first, bubbled into the running top 4 with a strict `>` at
-// every slot. The bubble is not a stable merge: an entry displaced by a
-// deeper one keeps its slot-by-slot comparison, so of two equal entries the
-// later one can survive. One bubble over all triangles therefore differs
-// from the TPU whenever a deeper contact arrives after two equal ones; the
-// two levels reproduce it. No atomics, so runs are bitwise repeatable.
-// A lane whose body is off skips the arithmetic (its depth would be -1e30,
-// which never enters the buffer). Built with --fmad=false, the arithmetic
-// rounds exactly as the plain PyTorch version in ops/body_contacts.py.
+// Design: one warp per (env lane, body slot). A block is W = 4 warps of
+// one body slot and one 128-lane env block, so they share the chunk list
+// (ops/chunk_compact.py, margin = the body's half-extent diagonal + 0.35)
+// and the body's vertex cloud, which a hull body's block stages in shared
+// memory before the block's one barrier; the grid is (B / W, D). A warp
+// whose pair is off (asleep, absent or padding) skips to writing the empty
+// buffer: the test is uniform across the warp. Thread t tests row t of
+// each listed chunk (four 16-byte loads; a warp reads the 2 KB chunk in
+// one sweep). The contact, the support radius and the active-edge fix are
+// the serial kernel's expressions in the same order. The contacts are kept
+// in the TPU kernel's two levels: the chunk's top 4 is up to 4 rounds of a
+// warp argmax on (depth, row), the larger depth first and then the smaller
+// row, the winner's entry masked to -1e30 after each round (the TPU's
+// repeated max with _first_row); each round's candidate is bubbled with a
+// strict `>` at every slot into the running top 4. The bubble is not a
+// stable merge: an entry displaced by a deeper one keeps its slot-by-slot
+// comparison, so of two equal entries the later one can survive, which is
+// what the TPU kernel does. A round whose candidate is no deeper than slot
+// 3 ends the chunk, since no later round's can enter. The running top 4 is
+// spread over the warp: its four depths in every thread, and field f of
+// slot s in thread 4 f + s, which is also where that value is written in
+// the [8, D*K, B] output. The rounds bubble the depths alone and track
+// where each slot's entry comes from; the fields move once a chunk, an old
+// entry by one shuffle and a new one from the chunk's contacts staged per
+// warp in shared memory (1 KB). Rows at -1e30 (invalid) and NaN never
+// enter. No atomics, so runs are bitwise repeatable. Built with
+// --fmad=false, the arithmetic rounds exactly as the plain PyTorch version
+// in ops/body_contacts.py.
 
 #include <cuda_runtime.h>
 
+#include "contact_math.cuh"
+
 namespace {
 
-constexpr int BLK = 128;
-constexpr int T_CHUNK = 32;
+using namespace contact;
+
+constexpr int BLK = 128;  // lanes of an env block (one chunk list)
+constexpr int WARPS = 4;  // (lane, body) pairs (warps) per CUDA block
 constexpr int K = 4;
-constexpr float NEG_BIG = -1e30f;
 constexpr float EDGE_EPS = 1e-3f;
 constexpr int MAX_V = 256;
-
-__device__ __forceinline__ float clipf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float signf(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-}
-
-// Ericson closest point on triangle t (rows ax..cz) to p.
-__device__ __forceinline__ void closest_on_tri(float px, float py, float pz,
-                                               const float* t, float& qx,
-                                               float& qy, float& qz) {
-  const float ax = t[0], ay = t[1], az = t[2];
-  const float bx = t[3], by = t[4], bz = t[5];
-  const float cx = t[6], cy = t[7], cz = t[8];
-  const float abx = bx - ax, aby = by - ay, abz = bz - az;
-  const float acx = cx - ax, acy = cy - ay, acz = cz - az;
-  const float apx = px - ax, apy = py - ay, apz = pz - az;
-  const float d1 = abx * apx + aby * apy + abz * apz;
-  const float d2 = acx * apx + acy * apy + acz * apz;
-  const float bpx = px - bx, bpy = py - by, bpz = pz - bz;
-  const float d3 = abx * bpx + aby * bpy + abz * bpz;
-  const float d4 = acx * bpx + acy * bpy + acz * bpz;
-  const float cpx = px - cx, cpy = py - cy, cpz = pz - cz;
-  const float d5 = abx * cpx + aby * cpy + abz * cpz;
-  const float d6 = acx * cpx + acy * cpy + acz * cpz;
-  const float va = d3 * d6 - d5 * d4;
-  const float vb = d5 * d2 - d1 * d6;
-  const float vc = d1 * d4 - d3 * d2;
-  const float denom = fmaxf(va + vb + vc, 1e-30f);
-  const float v_f = vb / denom;
-  const float w_f = vc / denom;
-  qx = ax + abx * v_f + acx * w_f;
-  qy = ay + aby * v_f + acy * w_f;
-  qz = az + abz * v_f + acz * w_f;
-  const float t_ab = clipf(d1 / fmaxf(d1 - d3, 1e-30f), 0.f, 1.f);
-  const float t_ac = clipf(d2 / fmaxf(d2 - d6, 1e-30f), 0.f, 1.f);
-  const float t_bc =
-      clipf((d4 - d3) / fmaxf((d4 - d3) + (d5 - d6), 1e-30f), 0.f, 1.f);
-  // later regions override earlier ones, as the jnp.where chain does
-  if ((vc <= 0.f) & (d1 >= 0.f) & (d3 <= 0.f)) {
-    qx = ax + abx * t_ab; qy = ay + aby * t_ab; qz = az + abz * t_ab;
-  }
-  if ((vb <= 0.f) & (d2 >= 0.f) & (d6 <= 0.f)) {
-    qx = ax + acx * t_ac; qy = ay + acy * t_ac; qz = az + acz * t_ac;
-  }
-  if ((va <= 0.f) & (d4 - d3 >= 0.f) & (d5 - d6 >= 0.f)) {
-    qx = bx + (cx - bx) * t_bc;
-    qy = by + (cy - by) * t_bc;
-    qz = bz + (cz - bz) * t_bc;
-  }
-  if ((d1 <= 0.f) & (d2 <= 0.f)) { qx = ax; qy = ay; qz = az; }
-  if ((d3 >= 0.f) & (d4 <= d3)) { qx = bx; qy = by; qz = bz; }
-  if ((d6 >= 0.f) & (d5 <= d6)) { qx = cx; qy = cy; qz = cz; }
-}
-
-// Rotate v by (qx, qy, qz, qw) in the TPU kernel's term order (_qrot).
-__device__ __forceinline__ void qrot(float qx, float qy, float qz, float qw,
-                                     float vx, float vy, float vz, float& ox,
-                                     float& oy, float& oz) {
-  const float tx = 2.f * (qy * vz - qz * vy);
-  const float ty = 2.f * (qz * vx - qx * vz);
-  const float tz = 2.f * (qx * vy - qy * vx);
-  ox = vx + qw * tx + qy * tz - qz * ty;
-  oy = vy + qw * ty + qz * tx - qx * tz;
-  oz = vz + qw * tz + qx * ty - qy * tx;
-}
 
 // Closest point qt on an interior point or an active edge/vertex of t
 // (compiler/edges.py flags in t[13..15]: AB, BC, CA).
@@ -140,82 +88,52 @@ __device__ __forceinline__ bool feature_active(float qtx, float qty,
          (on_ca & (t[15] > 0.5f));
 }
 
-struct Contact {
-  float d, nx, ny, nz, px, py, pz;
-};
-
-// The TPU kernel's running-buffer insertion: c bubbles down the buffer,
-// changing places with every entry it is strictly deeper than.
-__device__ __forceinline__ void bubble(Contact (&buf)[K], Contact c) {
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (c.d > buf[s].d) {
-      const Contact t = buf[s];
-      buf[s] = c;
-      c = t;
-    }
-  }
-}
-
-// Stable insertion: c goes after every entry at least as deep and the
-// entries after it move down one slot (an earlier candidate wins a tie).
-__device__ __forceinline__ void insert_stable(Contact (&buf)[K], Contact c) {
-  bool placed = false;
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    placed = placed || c.d > buf[s].d;
-    if (placed) {
-      const Contact t = buf[s];
-      buf[s] = c;
-      c = t;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(BLK)
+__global__ void __launch_bounds__(WARPS * 32)
 body_contacts_kernel(const float* __restrict__ tri16,
                      const int* __restrict__ idx, const int* __restrict__ cnt,
                      int nc, const float* __restrict__ body,
                      const float* __restrict__ verts,
                      const int* __restrict__ is_box, int V, int D,
                      float* __restrict__ out, int B) {
-  __shared__ float tile[T_CHUNK * 16];
   __shared__ float cloud[MAX_V * 3];
-  const int g = blockIdx.x;
+  __shared__ float rowf[WARPS][T_CHUNK][8];  // a chunk's contacts, per warp
+  const int tid = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lane = blockIdx.x * WARPS + warp;  // B % BLK == 0
+  const int g = lane / BLK;
   const int d = blockIdx.y;
-  const int G = gridDim.x;
-  const int lane = g * BLK + threadIdx.x;  // B is a multiple of BLK
-  const size_t plane = (size_t)D * B;
-  const float* row = body + (size_t)d * B + lane;
-  const float ccx = row[0], ccy = row[plane], ccz = row[2 * plane];
-  const float qx = row[3 * plane], qy = row[4 * plane];
-  const float qz = row[5 * plane], qw = row[6 * plane];
-  const float hx = row[7 * plane], hy = row[8 * plane], hz = row[9 * plane];
-  const bool on = row[10 * plane] > 0.5f;
-  const float bvx = row[11 * plane], bvy = row[12 * plane];
-  const float bvz = row[13 * plane];
+  const int G = B / BLK;
   const bool box = is_box[d] != 0;
-  for (int k = threadIdx.x; k < V * 3; k += BLK)
-    cloud[k] = verts[(size_t)d * V * 3 + k];
+  if (!box) {
+    for (int k = threadIdx.x; k < V * 3; k += WARPS * 32)
+      cloud[k] = verts[(size_t)d * V * 3 + k];
+  }
+  __syncthreads();  // the last barrier: warps may leave after it
 
-  const Contact empty = {NEG_BIG, 0.f, 1.f, 0.f, 0.f, 0.f, 0.f};
-  Contact best[K];
+  const size_t plane = (size_t)D * B;
+  const float* row_b = body + (size_t)d * B + lane;
+  const bool on = row_b[10 * plane] > 0.5f;
+  // field f of slot s of the running top K: (depth, nx, ny, nz, px, py,
+  // pz, pad), empty = (-1e30, 0, 1, 0, 0, 0, 0, 0)
+  const int f = tid >> 2, s = tid & 3;
+  float mine = f == 0 ? NEG_BIG : (f == 2 ? 1.f : 0.f);
+  if (on) {
+    const float ccx = row_b[0], ccy = row_b[plane], ccz = row_b[2 * plane];
+    const float qx = row_b[3 * plane], qy = row_b[4 * plane];
+    const float qz = row_b[5 * plane], qw = row_b[6 * plane];
+    const float hx = row_b[7 * plane], hy = row_b[8 * plane];
+    const float hz = row_b[9 * plane];
+    const float bvx = row_b[11 * plane], bvy = row_b[12 * plane];
+    const float bvz = row_b[13 * plane];
+    float bd[K];  // the slots' depths, the same in every thread
 #pragma unroll
-  for (int s = 0; s < K; ++s) best[s] = empty;
+    for (int q = 0; q < K; ++q) bd[q] = NEG_BIG;
 
-  const int n_chunks = cnt[d * G + g];
-  const int* list = idx + ((size_t)d * G + g) * nc;
-  for (int j = 0; j < n_chunks; ++j) {
-    const float* src = tri16 + (size_t)list[j] * (T_CHUNK * 16);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int k = threadIdx.x; k < T_CHUNK * 16; k += BLK) tile[k] = src[k];
-    __syncthreads();
-    if (!on) continue;
-    Contact chunk[K];
-#pragma unroll
-    for (int s = 0; s < K; ++s) chunk[s] = empty;
-    for (int r = 0; r < T_CHUNK; ++r) {
-      const float* t = tile + r * 16;
+    const int n_chunks = cnt[d * G + g];
+    const int* list = idx + ((size_t)d * G + g) * nc;
+    for (int j = 0; j < n_chunks; ++j) {
+      float t[16];
+      load_row(tri16, list[j], tid, t);
       float qtx, qty, qtz;
       closest_on_tri(ccx, ccy, ccz, t, qtx, qty, qtz);
       const float dx = ccx - qtx, dy = ccy - qty, dz = ccz - qtz;
@@ -243,9 +161,9 @@ body_contacts_kernel(const float* __restrict__ tri16,
       } else {
         r_sup = -(cloud[0] * lx + cloud[1] * ly + cloud[2] * lz);
         for (int v = 1; v < V; ++v) {
-          const float s =
+          const float sv =
               -(cloud[3 * v] * lx + cloud[3 * v + 1] * ly + cloud[3 * v + 2] * lz);
-          r_sup = fmaxf(r_sup, s);
+          r_sup = fmaxf(r_sup, sv);
         }
       }
       const float sgn = dx * nx + dy * ny + dz * nz;
@@ -257,43 +175,69 @@ body_contacts_kernel(const float* __restrict__ tri16,
           !feature_active(qtx, qty, qtz, t)) {
         nx = fx; ny = fy; nz = fz;
       }
-      insert_stable(chunk, Contact{depth, nx, ny, nz, qtx, qty, qtz});
-    }
-#pragma unroll
-    for (int s = 0; s < K; ++s) bubble(best, chunk[s]);
-  }
 
-  const size_t ch = (size_t)D * K * B;
+      // the chunk's top K, deepest first, each bubbled into the running K,
+      // on the depths alone; src[q] is where slot q's entry comes from
+      // (0..K-1 a slot at the chunk's start, K + k round k's candidate,
+      // row rk[k])
+      __syncwarp();  // the previous chunk's fields are read
+      float* const my_row = rowf[warp][tid];
+      my_row[0] = depth; my_row[1] = nx; my_row[2] = ny; my_row[3] = nz;
+      my_row[4] = qtx; my_row[5] = qty; my_row[6] = qtz; my_row[7] = 0.f;
+      __syncwarp();
+      float w = depth > NEG_BIG ? depth : NEG_BIG;  // NaN never enters
+      int src[K], rk[K];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    float* o = out + (size_t)(d * K + s) * B + lane;
-    o[0] = best[s].d;
-    o[ch] = best[s].nx;
-    o[2 * ch] = best[s].ny;
-    o[3 * ch] = best[s].nz;
-    o[4 * ch] = best[s].px;
-    o[5 * ch] = best[s].py;
-    o[6 * ch] = best[s].pz;
-    o[7 * ch] = 0.f;
+      for (int q = 0; q < K; ++q) { src[q] = q; rk[q] = 0; }
+      bool moved_any = false;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = warp_argmax(w, tid);
+        const float m = __shfl_sync(FULL, w, r);
+        if (!(m > bd[K - 1])) break;  // this and every later pick stay out
+        if (tid == r) w = NEG_BIG;
+        rk[k] = r;
+        moved_any = true;
+        float cd = m;
+        int cs = K + k;
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          if (cd > bd[q]) {
+            const float od = bd[q];
+            const int os = src[q];
+            bd[q] = cd; src[q] = cs;
+            cd = od; cs = os;
+          }
+        }
+      }
+      if (moved_any) {
+        const int from = s == 0 ? src[0] : s == 1 ? src[1] : s == 2 ? src[2] : src[3];
+        const float moved = __shfl_sync(FULL, mine, (tid & ~3) | (from & 3));
+        const int cr = from == K ? rk[0] : from == K + 1 ? rk[1] : from == K + 2 ? rk[2] : rk[3];
+        mine = from >= K ? rowf[warp][cr][f] : moved;
+      }
+    }
   }
+  out[(size_t)(f * D * K + d * K + s) * B + lane] = mine;
 }
 
 }  // namespace
 
-// tri16 [T, 16] f32 (T >= 32 * nc; columns 13-15 the active-edge flags),
-// idx [D, B/128, nc] i32, cnt [D, B/128] i32, body [16, D, B] f32,
-// verts [D, V, 3] f32 (V <= 256), is_box [D] i32, output [8, D*4, B] f32;
-// B a multiple of 128. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() (cudaErrorInvalidValue for V > 256).
+// tri16 [T, 16] f32, 16-byte aligned (T >= 32 * nc; columns 13-15 the
+// active-edge flags), idx [D, B/128, nc] i32, cnt [D, B/128] i32, body
+// [16, D, B] f32, verts [D, V, 3] f32 (V <= 256), is_box [D] i32, output
+// [8, D*4, B] f32; B a multiple of 128. Launches on `stream`, allocates
+// nothing, returns cudaGetLastError() (cudaErrorInvalidValue for V > 256
+// or a misaligned table).
 extern "C" int body_contacts_launch(const void* tri16, const void* idx,
                                     const void* cnt, int nc, const void* body,
                                     const void* verts, const void* is_box,
                                     int V, int D, void* out, int B,
                                     void* stream) {
-  if (V < 1 || V > MAX_V) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B / BLK, D);
+  if (V < 1 || V > MAX_V || (size_t)tri16 % 16) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B / WARPS, D);
   if (grid.x > 0 && D > 0) {
-    body_contacts_kernel<<<grid, BLK, 0, (cudaStream_t)stream>>>(
+    body_contacts_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
         (const float*)tri16, (const int*)idx, (const int*)cnt, nc,
         (const float*)body, (const float*)verts, (const int*)is_box, V, D,
         (float*)out, B);

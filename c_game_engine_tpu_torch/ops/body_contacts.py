@@ -140,9 +140,10 @@ def _kernel():
 
 def _launch(tri16, idx, cnt, body11, verts, is_box):
     global launches
-    from c_game_engine_tpu_torch.ops.build import check
+    from c_game_engine_tpu_torch.ops.build import check, check_rows_aligned
 
     tri16, idx, cnt, body11, verts = (t.contiguous() for t in (tri16, idx, cnt, body11, verts))
+    check_rows_aligned(tri16)
     flags = is_box.to(torch.int32)
     _, d, b = body11.shape
     out = torch.empty((8, d * K, b), dtype=torch.float32, device=body11.device)

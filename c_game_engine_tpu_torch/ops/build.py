@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled at first use
 with nvcc for Hopper (`sm_90a`) into `build/torch_kernels/` at the repo
 root (listed in .gitignore), then loaded with ctypes. The library file
-name carries a hash of the source and flags, so an edited source is
-rebuilt. Nothing here runs at import time.
+name carries a hash of the flags, the source and every header it includes
+from `csrc/` (`#include "..."`), so an edited source or header is rebuilt.
+Nothing here runs at import time.
 
 `--fmad=false` keeps nvcc from contracting a*b+c into one fused
 multiply-add: every product and sum then rounds as it does in the plain
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,10 +43,21 @@ def nvcc_path() -> str:
     return found
 
 
+def sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and the csrc headers it includes, directly or not."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / inc for inc in re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sources(name):
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -56,7 +69,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -83,3 +96,9 @@ class KernelLibrary:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_rows_aligned(tri16) -> None:
+    """The contact kernels read a [T, 16] triangle row as four 16-byte loads."""
+    if tri16.data_ptr() % 16:
+        raise ValueError("tri16 must start on a 16-byte boundary")

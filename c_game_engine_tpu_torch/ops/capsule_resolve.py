@@ -107,10 +107,11 @@ def _kernel():
 
 def _launch(tri16, idx, cnt, box8, boxh, pos, vel):
     global launches
-    from c_game_engine_tpu_torch.ops.build import check
+    from c_game_engine_tpu_torch.ops.build import check, check_rows_aligned
 
     args = [t.contiguous() for t in (tri16, idx, cnt, box8, boxh, pos, vel)]
     tri16, idx, cnt, box8, boxh, pos, vel = args
+    check_rows_aligned(tri16)
     b, n = pos.shape[0], box8.shape[1]
     pos_out = torch.empty_like(pos)
     vel_out = torch.empty_like(vel)

@@ -7,7 +7,8 @@
 stream (hold W, look += 0.01), then profiles `ticks` more and prints one
 JSON line: the card, wall ms per tick, device kernel ms per tick, the
 device's busy share, kernel launches and host syncs per tick, and the
-device time of each hand-written kernel with its share. A run without a
+device time of each hand-written kernel per tick and per launch, with its
+share. A run without a
 CUDA device fails.
 """
 
@@ -74,7 +75,7 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device_us, launches, syncs, found = device_summary(prof, KERNEL_NAMES)
-    kernels = {k: {"ms_per_tick": dev / 1e3 / ticks, "launches": n,
+    kernels = {k: {"ms_per_tick": dev / 1e3 / ticks, "launches": n, "ms_per_launch": dev / 1e3 / n,
                    "share_of_device_time": dev / device_us if device_us else None}
                for k, (dev, n) in found.items()}
     print(json.dumps({

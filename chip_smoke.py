@@ -8,9 +8,12 @@ Phases (any failure exits non-zero and prints no result line):
      with nvcc for sm_90a, one nvcc per source, all at once;
   3. kernel phase: the capsule-resolve (K1) and ray (K2) kernels against
      their plain PyTorch versions on the card, on the inputs a tick of a
-     4096-env run of the arena map hands them; then the body-contact kernel
-     (K3) likewise on the inputs a 4096-env tick of arena_bodies hands it
-     (every body awake, the hull bodies present); then the tile-raster
+     4096-env run of the arena map hands them (K1 bit for bit, on its main
+     and its stick-to-floor launch; K2 within TOL); then the body-contact
+     kernel (K3) likewise, bit for bit, on the inputs a 4096-env tick of
+     arena_bodies hands it (every body awake, the hull bodies present);
+     K1's and K3's wrapper times come with their chunk-list ops' share;
+     then the tile-raster
      kernel (K4) on the inputs one 64-env 256 x 256 render_batch of
      arena_lit hands it, for pass 1 and for the reveal pass; then the
      streamed raster kernel (K5) likewise on arena_orb (82,568 live
@@ -215,14 +218,16 @@ def kernel_phase(cmap, state, acts):
         pp, vp, gp = K1.resolve_capsule_plain(*args)
         torch.cuda.synchronize()
         err = max(float((pk - pp).abs().max()), float((vk - vp).abs().max()))
-        if not err <= TOL or not torch.equal(gk, gp):
-            raise AssertionError(f"K1 ({label}) disagrees with its plain version: "
+        if not (torch.equal(pk, pp) and torch.equal(vk, vp) and torch.equal(gk, gp)):
+            raise AssertionError(f"K1 ({label}) differs from its plain version: "
                                  f"max err {err}, grounded equal {torch.equal(gk, gp)}")
         k1_err = max(k1_err, err)
         k1_ms[label] = (cuda_time(lambda: K1.resolve_capsule(*args)),
-                        cuda_time(lambda: K1.resolve_capsule_plain(*args)))
-        print(f"K1 capsule_resolve {label} ({args[4].shape[0]} lanes): kernel {k1_ms[label][0]:.4f} ms, "
-              f"plain {k1_ms[label][1]:.4f} ms, max abs err {err:.3g}", flush=True)
+                        cuda_time(lambda: K1.resolve_capsule_plain(*args)),
+                        cuda_time(lambda: K1.chunk_lists(args[1], args[4])))
+        print(f"K1 capsule_resolve {label} ({args[4].shape[0]} lanes): kernel {k1_ms[label][0]:.4f} ms "
+              f"(its chunk lists {k1_ms[label][2]:.4f} ms), plain {k1_ms[label][1]:.4f} ms, bitwise equal",
+              flush=True)
     k1_b, k1_by = k1_bound(main)
 
     rays = seen["k2"][0]
@@ -248,7 +253,7 @@ def kernel_phase(cmap, state, acts):
          "source": "c_game_engine_tpu_torch/csrc/capsule_resolve.cu",
          "replaces": "c_game_engine_tpu/ops/capsule_resolve.py:240",
          "max_abs_err": k1_err, "ms": k1_ms["main"][0], "plain_ms": k1_ms["main"][1],
-         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None,
+         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None, "ms_chunk_lists": k1_ms["main"][2],
          "ms_stick": k1_ms["stick"][0], "plain_ms_stick": k1_ms["stick"][1]},
         {"name": "ray_tris", "route": "cuda",
          "source": "c_game_engine_tpu_torch/csrc/ray_tris.cu",
@@ -276,18 +281,19 @@ def body_kernel_phase(cmap, state, acts):
     op = K3.body_contacts_plain(*args)
     torch.cuda.synchronize()
     err = float((ok - op).abs().max())
-    if not err <= TOL:
-        raise AssertionError(f"K3 disagrees with its plain version: max err {err}")
-    ms = (cuda_time(lambda: K3.body_contacts(*args)), cuda_time(lambda: K3.body_contacts_plain(*args)))
+    if not torch.equal(ok, op):
+        raise AssertionError(f"K3 differs from its plain version: max err {err}")
+    ms = (cuda_time(lambda: K3.body_contacts(*args)), cuda_time(lambda: K3.body_contacts_plain(*args)),
+          cuda_time(lambda: K3.chunk_lists(args[1], body, args[3])))
     b_ms, b_by = k3_bound(args)
     print(f"K3 body_contacts ({body.shape[1]} bodies x {body.shape[2]} lanes, {n_on} awake): "
-          f"kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, max abs err {err:.3g}, "
-          f"bitwise equal {torch.equal(ok, op)}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"kernel {ms[0]:.4f} ms (its chunk lists {ms[2]:.4f} ms), plain {ms[1]:.4f} ms, bitwise equal, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return {"name": "body_contacts", "route": "cuda",
             "source": "c_game_engine_tpu_torch/csrc/body_contacts.cu",
             "replaces": "c_game_engine_tpu/ops/body_contacts.py:202",
             "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "ms_chunk_lists": ms[2]}
 
 
 def reference_phase(name, cmap_gpu, cmap_cpu):

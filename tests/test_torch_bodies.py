@@ -4,7 +4,10 @@ package, on the CPU.
 (a) K3's plain version (ops/body_contacts.py) against the Pallas kernel
     body_contacts_pallas in TPU interpret mode on the arena's triangles,
     with box and hull bodies, awake, off and padded lanes, and lanes built
-    to tie within a chunk and across chunks: 1e-5, tie order exact.
+    to tie within a chunk and across chunks: 1e-5, tie order exact; and on
+    a small table of exact ties (tests/torch_inputs.py::k3_tie_inputs:
+    eight equal rows over one chunk's rows, an invalid one among them,
+    and an equal pair across two chunks), bit for bit.
 (b) physics/bodies.py::step_bodies_batched against the JAX function with
     _use_pallas() forced on and K3 in interpret mode, so both take the same
     per-block candidate sets: one call from each of a few states (a mixed
@@ -36,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_inputs import TIE_X
+from tests.torch_inputs import K3_TIE_ROWS, K3_TIE_X, TIE_X, k3_tie_inputs
 from tests.torch_inputs import k3_inputs as _k3_inputs
 from tests.torch_parity import (
     assert_leaves_match,
@@ -100,6 +103,40 @@ def test_body_contacts_matches_pallas_kernel(arena):
     assert (tie[1][:, 3] < TIE_X).all() and (depth[0, 128:200, 3] > -0.1).all()
     # box and hull bodies all touch something
     assert all((depth[k][on[k]][:, 0] > -0.3).any() for k in range(4))
+
+
+def test_body_contacts_tie_rows_match_pallas_kernel():
+    """Equal depths spread over one chunk's rows keep the first four by row
+    (an invalid row among them stays out); an equal pair across chunks
+    keeps list order: the same as the Pallas kernel, bit for bit."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from c_game_engine_tpu.ops.body_contacts import body_contacts_pallas
+    from c_game_engine_tpu_torch.ops import body_contacts as k3
+
+    tri16, cb, body, margin, verts, is_box = k3_tie_inputs()
+    with pltpu.force_tpu_interpret_mode():
+        oj = np.asarray(body_contacts_pallas(jnp.asarray(tri16), jnp.asarray(cb), jnp.asarray(body), 1,
+                                             jnp.asarray(margin), verts=jnp.asarray(verts), is_box=is_box))
+    ot = k3.body_contacts(*(torch.as_tensor(a) for a in (tri16, cb, body, margin, verts)),
+                          torch.tensor(is_box)).numpy()
+    np.testing.assert_array_equal(ot, oj)
+
+    on = body[10, 0] > 0.5
+    a, b = on & (np.arange(256) < 128), on & (np.arange(256) >= 128)
+    depth, px, py, pz = ot[0], ot[4], ot[5], ot[6]  # [K, B]
+    assert (depth[:, a] == depth[0, a]).all() and (depth[0, a] > 0.1).all()
+    # block 0: rows 2, 6, 9 and 17 of chunk 0, in that order
+    vertex = lambda r: tri16[r, 0:3]
+    for s_, r in enumerate(K3_TIE_ROWS[:3] + K3_TIE_ROWS[4:5]):
+        assert (np.stack([px[s_, a], py[s_, a], pz[s_, a]], 1) == vertex(r)).all()
+    # block 1: X (chunk 1 row 28), then its equal Y (chunk 2 row 1), then D
+    for s_, r in enumerate((32 + 28, 64 + 1, 64 + 5)):
+        assert (np.stack([px[s_, b], py[s_, b], pz[s_, b]], 1) == vertex(r)).all()
+    assert (depth[0, b] == depth[1, b]).all() and (depth[2, b] < depth[1, b]).all()
+    assert (depth[3, b] == -1e30).all() and (depth[:, ~on] == -1e30).all()
+    assert (px[0, b] > K3_TIE_X[1]).all() and (px[1, b] < K3_TIE_X[1]).all()
 
 
 def test_body_contacts_checks_inputs(arena):

@@ -4,11 +4,12 @@ where no CUDA device is present). Run them on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same device:
-positions, velocities, ray t, contacts and the raster planes within 1e-5
-(the kernels are built with --fmad=false, so they round as the plain
-version does), `grounded`, hit/miss, the contact kernel's tie order and
-the raster kernels' winner ids and K4's enc words exactly (K5's z planes
-too); a short rollout on
+ray t and K4's float planes within 1e-5 (the kernels are built with
+--fmad=false, so they round as the plain version does), hit/miss and the
+raster kernels' winner ids and K4's enc words exactly, and K1's positions,
+velocities and `grounded`, K3's contacts with their tie order and K5's
+planes bit for bit, on random inputs and on tables of exact ties; a short
+rollout on
 the card is held to the CPU plain path with the slice bars of
 tests/test_torch_slice.py, and a render to the CPU's with the frame bar.
 The helpers are imported as top-level modules of tests/ (pytest puts the
@@ -44,8 +45,12 @@ def arena():
     return lambda dev: load_map(root / "arena.npz", root / "arena.json", dev)
 
 
-@pytest.mark.parametrize("layout", ["clustered", "scattered"])
+@pytest.mark.parametrize("layout", ["clustered", "scattered", "tie"])
 def test_capsule_resolve_kernel_matches_plain(cuda, arena, layout):
+    """K1 on the card against its plain version, bit for bit; "tie" is the
+    table of exact ties (first deepest triangle in list order, across a
+    warp's threads and across chunks; a box only when strictly deeper;
+    the first of two equal boxes)."""
     from c_game_engine_tpu_torch.ops import capsule_resolve as k1
     from torch_inputs import capsule_inputs
 
@@ -55,9 +60,7 @@ def test_capsule_resolve_kernel_matches_plain(cuda, arena, layout):
     assert k1.launches == before + 1
     pp, vp, gp = k1.resolve_capsule_plain(*args)
     torch.cuda.synchronize()
-    assert float((pk - pp).abs().max()) <= 1e-5
-    assert float((vk - vp).abs().max()) <= 1e-5
-    assert torch.equal(gk, gp)
+    assert torch.equal(pk, pp) and torch.equal(vk, vp) and torch.equal(gk, gp)
 
 
 def test_ray_tris_kernel_matches_plain(cuda, arena):
@@ -93,6 +96,24 @@ def test_body_contacts_kernel_matches_plain(cuda, arena):
     op = k3.body_contacts_plain(*args)
     torch.cuda.synchronize()
     assert float((ok - op).abs().max()) <= 1e-5
+    assert torch.equal(ok, op)
+
+
+def test_body_contacts_tie_kernel_matches_plain(cuda):
+    """K3 on the card against its plain version on the table of exact ties
+    (eight equal rows over one chunk's rows, an invalid one among them; an
+    equal pair across chunks; an all-invalid chunk; off lanes), bit for
+    bit."""
+    from c_game_engine_tpu_torch.ops import body_contacts as k3
+    from torch_inputs import k3_tie_inputs
+
+    *args, is_box = k3_tie_inputs()
+    args = [torch.as_tensor(a, device=cuda) for a in args] + [torch.tensor(is_box, device=cuda)]
+    before = k3.launches
+    ok = k3.body_contacts(*args)
+    assert k3.launches == before + 1
+    op = k3.body_contacts_plain(*args)
+    torch.cuda.synchronize()
     assert torch.equal(ok, op)
 
 

@@ -3,7 +3,9 @@
 The port's kernels K1 (ops/capsule_resolve.py) and K2 (ops/ray_tris.py)
 run here as their plain PyTorch versions (CPU tensors); the references are
 the Pallas kernels themselves in TPU interpret mode, on the same inputs
-made with numpy from a seed. chunk_compact is held to exact equality.
+made with numpy from a seed (K1 also on a small table of exact ties,
+tests/torch_inputs.py::_capsule_tie_inputs). chunk_compact is held to
+exact equality.
 
 Tolerances: 1e-5 absolute for positions and ray t, and 1e-5 relative to
 the lane's speed for velocities (the two sides differ only in float
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_inputs import K1_TIE_X
 from tests.torch_inputs import capsule_inputs as _capsule_inputs
 from tests.torch_parity import export_and_load
 
@@ -85,7 +88,7 @@ def test_compact_chunk_lists_equal(maps):
     assert int(np.asarray(cj)[4]) == 0  # the empty query
 
 
-@pytest.mark.parametrize("layout", ["clustered", "scattered"])
+@pytest.mark.parametrize("layout", ["clustered", "scattered", "tie"])
 def test_capsule_resolve_matches_pallas_kernel(maps, layout):
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
@@ -94,7 +97,7 @@ def test_capsule_resolve_matches_pallas_kernel(maps, layout):
     from c_game_engine_tpu_torch.ops import capsule_resolve as k1
 
     _, tc = maps
-    args = _capsule_inputs(tc, layout, seed={"clustered": 2, "scattered": 3}[layout])
+    args = _capsule_inputs(tc, layout, seed={"clustered": 2, "scattered": 3, "tie": 4}[layout])
     with pltpu.force_tpu_interpret_mode():
         pj, vj, gj = (np.asarray(a) for a in resolve_capsule_pallas(*(jnp.asarray(a) for a in args)))
     before = k1.launches
@@ -110,6 +113,15 @@ def test_capsule_resolve_matches_pallas_kernel(maps, layout):
     np.testing.assert_array_equal(gt, gj)
     assert gt.any() and (~gt).any()
     assert moved.max() > 0.05  # real contacts were resolved
+    if layout == "tie":
+        # the first of each tie wins: the walls at rows 3 and 20 and box 1
+        # push toward -x first, and after 4 pushes the capsules end 0.075 m
+        # on the +x side; the floor beats the flush box, so x stays put
+        x = pt[:, 0].reshape(-1, 4, 32)
+        for k, (name, x0) in enumerate(K1_TIE_X.items()):
+            want = x0 if name == "box_flush" else x0 + 0.075
+            assert np.all(np.abs(x[:, k] - want) <= 1e-5), name
+        assert (x[:, 2] == K1_TIE_X["box_flush"]).all()
 
 
 def test_ray_tris_matches_pallas_kernel(maps):

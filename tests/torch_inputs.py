@@ -10,8 +10,11 @@ import numpy as np
 
 
 def capsule_inputs(tc, layout, seed, batch=256):
-    """pos/vel [B, 3] and random solid boxes [8/4, N, B] near the lanes."""
+    """pos/vel [B, 3] and random solid boxes [8/4, N, B] near the lanes;
+    layout "tie" builds its own table instead (_capsule_tie_inputs)."""
     rng = np.random.default_rng(seed)
+    if layout == "tie":
+        return _capsule_tie_inputs(rng, batch)
     if layout == "clustered":
         # every 128-lane block is a small cluster on the stairs/terrace
         centres = np.array([[10.9, 0.45, -2.0], [16.0, 1.25, 3.0]], np.float32)
@@ -40,6 +43,78 @@ def capsule_inputs(tc, layout, seed, batch=256):
     boxh = np.concatenate([rng.uniform(0.05, 0.15, (3, n, batch)), np.zeros((1, n, batch))]).astype(np.float32)
     tri16 = tc.tri16.numpy()
     return tri16, tc.chunk_bounds.numpy(), box8, boxh, pos, vel
+
+
+# the K1 tie layout: four groups of capsules (radius 0.2, half height 0.25)
+# over a 3-chunk table, each at an exact tie; x of each group's axis
+K1_TIE_X = {"in_chunk": 50.0, "across_chunks": 70.0, "box_flush": 60.0, "two_boxes": 80.0}
+
+
+def _capsule_tie_inputs(rng, batch):
+    """A [96, 16] table, its chunk bounds, 4 boxes per lane and 256 lanes in
+    four groups, 32 lanes of each group per 128-lane block (one chunk list
+    for every lane). Every distance below is a power of two, so each tie is
+    exact in float32 whatever the evaluation order:
+
+    - in_chunk: walls 0.125 m either side of the capsule axis, at rows 3
+      and 17 of chunk 0, normals -x and +x; row 3 must win, so the first
+      push is toward -x;
+    - across_chunks: the same pair at chunk 0 row 20 (-x) and chunk 1 row 2
+      (+x); row 20 must win, though its thread (20) is the later one;
+    - box_flush: a floor triangle's vertex 0.125 m under the capsule's
+      bottom (chunk 2 row 9), and box 1, axis-aligned, its top flush with
+      the floor and its side 2**-15 m off the axis: the same depth
+      (0.125**2 + 2**-30 rounds to 0.125**2), normals (0, 1, 0) and
+      (2**-12, 1, 0); the triangle must win, as a box wins only when
+      strictly deeper; velocity 0, so the near-ties of the later
+      iterations (depth ~0) cannot move anything;
+    - two_boxes: boxes 1 and 2 0.125 m either side of the axis (normals -x
+      and +x), far from every triangle; box 1 must win.
+    Box 0 is masked in every lane (still the serial walk's first box), and
+    every box a group does not use is masked."""
+    rows = np.zeros((96, 16), np.float32)
+
+    def tri(r, a, b, c, n):
+        rows[r, 0:9] = np.array([a, b, c], np.float32).reshape(9)
+        rows[r, 9:16] = (*n, 1.0, 1.0, 1.0, 1.0)
+
+    def wall(r, x, nx):  # the plane x, around (x, 1, 0), facing nx
+        tri(r, (x, -1.0, -1.5), (x, 3.0, 0.0), (x, -1.0, 1.5), (nx, 0.0, 0.0))
+
+    x1, x2, x3, x4 = K1_TIE_X.values()
+    wall(3, x1 + 0.125, -1.0)
+    wall(17, x1 - 0.125, 1.0)
+    wall(20, x2 + 0.125, -1.0)
+    wall(32 + 2, x2 - 0.125, 1.0)
+    tri(64 + 9, (x3, 0.0, 0.0), (x3 + 2.0, 0.0, -1.0), (x3 + 2.0, 0.0, 1.0), (0.0, 1.0, 0.0))
+    bounds = np.zeros((3, 4), np.float32)
+    for c in range(3):
+        v = rows[32 * c:32 * (c + 1)][rows[32 * c:32 * (c + 1), 12] > 0, 0:9].reshape(-1, 3)
+        bounds[c] = v[:, 0].min(), v[:, 2].min(), v[:, 0].max(), v[:, 2].max()
+
+    group = np.tile(np.repeat(np.arange(4), 32), batch // 128)
+    xs, heights = np.array([x1, x2, x3, x4]), np.array([1.0, 1.0, 0.375, 1.0])
+    pos = np.stack([xs[group], heights[group], np.zeros(batch)], 1).astype(np.float32)
+    vel = rng.normal(0, 2.0, (batch, 3)).astype(np.float32)
+    vel[group == 2] = 0.0
+    n = 4
+    box8 = np.zeros((8, n, batch), np.float32)
+    box8[0:3] = np.float32(-40.0)  # far away and masked
+    box8[6] = 1.0  # identity quaternions
+    boxh = np.zeros((4, n, batch), np.float32)
+    boxh[0:3] = 0.25
+
+    def box(k, lanes, centre, half):
+        box8[0:3, k, lanes] = np.float32(centre)[:, None]
+        box8[7, k, lanes] = 1.0
+        boxh[0:3, k, lanes] = np.float32(half)[:, None]
+
+    flush = group == 2
+    box(1, flush, (x3 - 0.25 - 2.0 ** -15, -0.25, 0.0), (0.25, 0.25, 0.25))
+    two = group == 3
+    box(1, two, (x4 + 0.375, 1.0, 0.0), (0.25, 0.5, 0.25))
+    box(2, two, (x4 - 0.375, 1.0, 0.0), (0.25, 0.5, 0.25))
+    return rows, bounds, box8, boxh, pos, vel
 
 
 def cylinder(radius, half_height, n_sides=12):
@@ -125,6 +200,69 @@ def k3_inputs(tc):
     tri16 = np.concatenate([tc.tri16.numpy()[: 32 * tc.chunk_bounds.shape[0]], rows])
     cb = np.concatenate([tc.chunk_bounds.numpy(), bounds])
     return tri16, cb, body, margin, verts, (True, True, False, False)
+
+
+# the K3 tie case: two groups of one 0.2 m box body over a 4-chunk table
+K3_TIE_X = (200.0, 210.0)
+K3_TIE_ROWS = (2, 6, 9, 13, 17, 21, 25, 30)  # chunk 0; row 13 is invalid
+
+
+def _vertex_tri(rows, r, q, away):
+    """Row r: a horizontal triangle with vertex q, its other two vertices 2 m
+    further along `away` (a step from the body's centre toward q; +x where
+    the step is vertical), so q is its closest point to the centre; the
+    face normal points toward the centre."""
+    q = np.asarray(q, np.float64)
+    ax, _, az = away if away[0] or away[2] else (1.0, 0.0, 0.0)
+    side = np.array([-az, 0.0, ax])  # across the step, in the plane
+    far = q + 2.0 * np.array([ax, 0.0, az])
+    rows[r, 0:9] = np.array([q, far - side, far + side], np.float32).reshape(9)
+    rows[r, 9:16] = (0.0, -np.sign(away[1]), 0.0, 1.0, 1.0, 1.0, 1.0)
+
+
+def k3_tie_inputs():
+    """(tri16 [128, 16], chunk bounds [4, 4], body11 [16, 1, 256], margin
+    [1], verts [1, 1, 3], is_box) for one unrotated 0.2 m box body at rest
+    (no edge fix), over a table of its own. Every contact below is a
+    triangle vertex at (+-0.125, +-0.125, 0) or (0, +-0.125, +-0.125) from
+    the body's centre, so their depths are equal to the last bit at eight
+    different points.
+
+    Block 0 (centre (K3_TIE_X[0], 0.125, 0)): eight such rows in chunk 0,
+    at rows K3_TIE_ROWS, spread over a warp's threads, row 13 invalid
+    (t[12] = 0); only rows 2, 6, 9 and 17, in that order, may be kept.
+    Block 1 (centre (K3_TIE_X[1], 0.125, 0)): X at chunk 1 row 28 and Y,
+    X's mirror image, at chunk 2 row 1, with a shallower contact D (a
+    vertex 0.125 m straight below) at chunk 2 row 5; the buffer must read
+    [X, Y, D]. Chunk 3 holds only invalid rows, and block 0 lists it.
+    Every fifth lane is off, and lanes 232-255 are padding."""
+    rows = np.zeros((128, 16), np.float32)
+    xa, xb = K3_TIE_X
+    h = 0.125
+    offs = [(h, -h, 0.0), (-h, -h, 0.0), (0.0, -h, h), (0.0, -h, -h),
+            (h, h, 0.0), (-h, h, 0.0), (0.0, h, h), (0.0, h, -h)]
+    for r, (dx, dy, dz) in zip(K3_TIE_ROWS, offs):
+        _vertex_tri(rows, r, (xa + dx, h + dy, dz), np.sign((dx, dy, dz)))
+    rows[13, 12] = 0.0
+    _vertex_tri(rows, 32 + 28, (xb + h, 0.0, 0.0), (1.0, -1.0, 0.0))  # X
+    _vertex_tri(rows, 64 + 1, (xb - h, 0.0, 0.0), (-1.0, -1.0, 0.0))  # Y
+    _vertex_tri(rows, 64 + 5, (xb, 0.0, 0.0), (0.0, -1.0, 0.0))  # D, straight below
+    rows[96:, 0:9] = np.tile([xa, -5.0, 0.0], 3)  # invalid rows of chunk 3
+    bounds = np.zeros((4, 4), np.float32)
+    for c in range(4):
+        v = rows[32 * c:32 * (c + 1), 0:9].reshape(-1, 3)[np.repeat(rows[32 * c:32 * (c + 1), 0] != 0, 3)]
+        bounds[c] = v[:, 0].min(), v[:, 2].min(), v[:, 0].max(), v[:, 2].max()
+
+    b = 256
+    body = np.zeros((16, 1, b), np.float32)
+    body[0, 0] = np.where(np.arange(b) < 128, xa, xb)
+    body[1, 0] = h
+    body[6, 0] = 1.0  # identity quaternion
+    body[7:10, 0] = 0.2
+    body[10, 0] = np.arange(b) % 5 != 4
+    body[:, :, 232:] = 0.0
+    margin = np.array([np.sqrt(3 * 0.2 ** 2) + 0.35], np.float32)
+    return rows, bounds, body, margin, np.zeros((1, 1, 3), np.float32), (True,)
 
 
 def k4_inputs(seed, batch=2, height=32, width=256, t=120):
