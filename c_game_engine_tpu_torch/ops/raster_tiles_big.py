@@ -177,6 +177,33 @@ def _plain(trit, exclude, tile_on, height, width):
     return image(zbuf), image(win)
 
 
+def inside_pairs(trit, height, width, tile_on=None):
+    """How many (pixel, row) pairs of the walk have the pixel inside the
+    row's triangle: the pairs on which the kernel computes the denominator,
+    z and the division (chip_smoke.py's bound). The same edge functions
+    as `_plain`; reads the lists' lengths on the host."""
+    b = trit.shape[0]
+    nty, ntx = height // TILE_H, width // TILE_W
+    dev = trit.device
+    idx, cnt = tile_lists(trit, height, width, tile_on)
+    x = torch.arange(ntx * TILE_W, device=dev).float().reshape(ntx, 1, TILE_W) + 0.5
+    y = torch.arange(nty * TILE_H, device=dev).float().reshape(nty, TILE_H, 1) + 0.5
+    gx = x.expand(nty, ntx, TILE_H, TILE_W).reshape(1, nty * ntx, TILE_H, TILE_W)
+    gy = y[:, None].expand(nty, ntx, TILE_H, TILE_W).reshape(1, nty * ntx, TILE_H, TILE_W)
+    rows = trit[:, :6].transpose(1, 2)  # [B, T, 6]
+    bi = torch.arange(b, device=dev)[:, None]
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(idx.shape[-1]):
+        row = rows[bi, idx[..., j]]  # [B, NT, 6]
+        ax, ay, bx, by, cx, cy = (row[..., k, None, None] for k in range(6))
+        e0 = (bx - ax) * (gy - ay) - (by - ay) * (gx - ax)
+        e1 = (cx - bx) * (gy - by) - (cy - by) * (gx - bx)
+        e2 = (ax - cx) * (gy - cy) - (ay - cy) * (gx - cx)
+        inside = ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)) | ((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
+        n += (inside & (cnt > j)[..., None, None]).sum()
+    return int(n)
+
+
 @functools.cache
 def _kernel():
     from c_game_engine_tpu_torch.ops.build import KernelLibrary
@@ -191,6 +218,8 @@ def _launch(trit, cbox, scb, exclude, tile_on, height, width):
 
     if not all(x.is_contiguous() for x in (trit, cbox, scb, exclude, tile_on) if x is not None):
         raise ValueError("K5 takes contiguous tensors")
+    if trit.data_ptr() % 16:
+        raise ValueError("trit must start on a 16-byte boundary (the kernel stages it in 16-byte copies)")
     b, _, t = trit.shape
     z = torch.empty((b, height, width), dtype=torch.float32, device=trit.device)
     win = torch.empty((b, height, width), dtype=torch.int32, device=trit.device)

@@ -7,9 +7,10 @@ that overlap its rays' segment XZ box (margin 0). Rays are padded with
 zeros to a multiple of 128; a padded lane is a point at the origin, which
 widens its block's box as it does on the TPU.
 
-`ray_tris` launches the CUDA kernel (csrc/ray_tris.cu) for CUDA tensors
-and runs `ray_tris_plain` for CPU tensors. `launches` counts kernel
-launches.
+`ray_tris` launches the CUDA kernel (csrc/ray_tris.cu) for CUDA tensors,
+which builds each block's chunk list itself (one launch after `_pack`),
+and runs `ray_tris_plain` for CPU tensors, which builds the lists with
+`chunk_lists`. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -59,6 +60,8 @@ def chunk_lists(chunk_bounds, rays):
 def _check(tri16, chunk_bounds, origin, direction, max_dist):
     if tri16.ndim != 2 or tri16.shape[1] != 16 or tri16.shape[0] < T_CHUNK * chunk_bounds.shape[0]:
         raise ValueError(f"tri16 {tuple(tri16.shape)} does not cover {chunk_bounds.shape[0]} chunks")
+    if chunk_bounds.ndim != 2 or chunk_bounds.shape[1] != 4:
+        raise ValueError(f"chunk_bounds must be [NC, 4], got {tuple(chunk_bounds.shape)}")
     r = origin.shape[0]
     if origin.shape != (r, 3) or direction.shape != (r, 3):
         raise ValueError(f"origin/direction must be [R, 3], got {tuple(origin.shape)}, {tuple(direction.shape)}")
@@ -77,12 +80,11 @@ def _check(tri16, chunk_bounds, origin, direction, max_dist):
 def ray_tris(tri16, chunk_bounds, origin, direction, max_dist):
     """origin/direction [R, 3], max_dist scalar or [R] -> t [R] (1e30 = miss)."""
     _check(tri16, chunk_bounds, origin, direction, max_dist)
-    rays = _pack(origin, direction, max_dist)
-    idx, cnt = chunk_lists(chunk_bounds, rays)
     if origin.device.type == "cuda":
-        t = _launch(tri16, idx, cnt, rays)
+        t = _launch(tri16, chunk_bounds, _pack(origin, direction, max_dist))
     elif origin.device.type == "cpu":
-        t = _ray_tris_plain(tri16, idx, cnt, rays)
+        rays = _pack(origin, direction, max_dist)
+        t = _ray_tris_plain(tri16, *chunk_lists(chunk_bounds, rays), rays)
     else:
         raise ValueError(f"no ray kernel for device {origin.device}")
     return t[: origin.shape[0]]
@@ -102,19 +104,20 @@ def _kernel():
     from c_game_engine_tpu_torch.ops.build import KernelLibrary
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    return KernelLibrary("ray_tris").fn("ray_tris_launch", [p, p, p, i, p, p, i, p])
+    return KernelLibrary("ray_tris").fn("ray_tris_launch", [p, p, i, p, p, i, p])
 
 
-def _launch(tri16, idx, cnt, rays):
+def _launch(tri16, chunk_bounds, rays):
     global launches
-    from c_game_engine_tpu_torch.ops.build import check
+    from c_game_engine_tpu_torch.ops.build import check, check_rows_aligned
 
-    tri16, idx, cnt, rays = (t.contiguous() for t in (tri16, idx, cnt, rays))
+    tri16, chunk_bounds = tri16.contiguous(), chunk_bounds.contiguous()
+    check_rows_aligned(tri16)
     r = rays.shape[1]
     out = torch.empty(r, dtype=torch.float32, device=rays.device)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = _kernel()(
-        tri16.data_ptr(), idx.data_ptr(), cnt.data_ptr(), idx.shape[1],
+        tri16.data_ptr(), chunk_bounds.data_ptr(), chunk_bounds.shape[0],
         rays.data_ptr(), out.data_ptr(), r, stream,
     )
     check(err, "ray_tris")

@@ -1,13 +1,16 @@
-"""Where the contact kernels' time goes on one GPU: K1 (capsule resolve) and
-K3 (body contacts), each as built and as variants of its source that
-change the launch shape or leave one part of the work out, timed on the
-inputs of a main-path tick.
+"""Where the hand kernels' time goes on one GPU: K1 (capsule resolve), K2
+(ray vs triangles), K3 (body contacts) and K5 (streamed raster), each as
+built and as variants of its source that change the launch shape or leave
+one part of the work out, timed on main-path inputs.
 
-    python3 -m c_game_engine_tpu_torch.profile_contacts
+    python3 -m c_game_engine_tpu_torch.profile_kernels [kernel ...]
 
-Captures the arguments one 4096-env tick of arena hands K1 (its 8192-lane
-main launch, after 8 ticks) and the first 4096-env tick of arena_bodies
-hands K3 (every body awake), as chip_smoke.py's kernel phase does. For each
+(default: all four; names as in csrc/). Captures the arguments one
+4096-env tick of arena hands K1 (its 8192-lane main launch, after 8 ticks)
+and K2 (the merged ray launch's 8192 rays), the first 4096-env tick of
+arena_bodies hands K3 (every body awake), as chip_smoke.py's kernel phase
+does, and pass 1 of one 64-env 256 x 256 render_batch of arena_orb after
+60 ticks hands K5, as its render phase does. For each
 variant it edits a copy of csrc/<kernel>.cu, builds it with the package's
 nvcc flags, and prints one JSON line: ptxas's registers and spill bytes,
 whether the output still equals the plain PyTorch version bit for bit
@@ -19,6 +22,7 @@ warm-up launches. A run without a CUDA device fails.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -60,35 +64,43 @@ VARIANTS = {
                               "float qtx = t[0] + t[3] * t[6], qty = t[1] + t[4] * t[7], "
                               "qtz = t[2] + t[5] * t[8];")],
     },
+    "ray_tris": {
+        "as built": [],
+        "no register cap": [("__launch_bounds__(NTHREADS, 2)", "__launch_bounds__(NTHREADS)")],
+        "8 warps a block": [("constexpr int WARPS = 16;", "constexpr int WARPS = 8;")],
+        "32 warps a block": [("constexpr int WARPS = 16;", "constexpr int WARPS = 32;"),
+                             ("__launch_bounds__(NTHREADS, 2)", "__launch_bounds__(NTHREADS)")],
+        "batches of 4 chunks": [("constexpr int BATCH = 8;", "constexpr int BATCH = 4;")],
+        "lists and staging only, no rows tested": [("for (int j = 0; j < nb; ++j) {", "for (int j = 0; j < 0; ++j) {")],
+        "rows read, no ray arithmetic": [
+            ("const float ax = ta.x, ay = ta.y, az = ta.z;",
+             "tbest = fminf(tbest, ta.x + ta.y + ta.z + ta.w + tb.x + tb.y + tb.z + tb.w + tc.x + valid);"
+             " continue;\n        const float ax = ta.x, ay = ta.y, az = ta.z;")],
+    },
+    "raster_tiles_big": {
+        "as built": [],
+        "128 threads, 8 pixels a thread": [("constexpr int NTHREADS = 256;", "constexpr int NTHREADS = 128;")],
+        "512 threads, 2 pixels a thread": [("constexpr int NTHREADS = 256;", "constexpr int NTHREADS = 512;")],
+        "subchunks listed 4 hit chunks at a time": [("constexpr int S_CHUNKS = 16;", "constexpr int S_CHUNKS = 4;")],
+        "z and the division on every pair": [("if (!__any_sync(FULL, any)) continue;", ""),
+                                             ("if (!in[p]) continue;", ""),
+                                             ("if (z > 0.f && z < 1.f", "if (in[p] && z > 0.f && z < 1.f")],
+        "lists and staging only, no rows walked": [("while (mask != 0ull) {", "while (false) {")],
+    },
 }
 
 
 def capture(cmap, batch, ticks):
     """Run `ticks` ticks, then one more, and return the argument tuples that
-    last tick hands K1 and K3."""
-    from c_game_engine_tpu_torch.core.step import step_batch
+    last tick hands K1, K2 and K3."""
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
-    from c_game_engine_tpu_torch.physics import batched, bodies
+    from c_game_engine_tpu_torch.profile_tick import tick_calls
 
     dev = cmap.tri16.device
     state = reset_batch(cmap, batch)
     if ticks:
         state = rollout(cmap, state, bench_actions(ticks, batch, dev))
-    seen = {"k1": [], "k3": []}
-    k1, k3 = batched.resolve_capsule, bodies.body_contacts
-
-    def rec(key, fn):
-        def call(*a):
-            seen[key].append(tuple(t.clone() if hasattr(t, "clone") else t for t in a))
-            return fn(*a)
-        return call
-
-    batched.resolve_capsule, bodies.body_contacts = rec("k1", k1), rec("k3", k3)
-    try:
-        step_batch(cmap, state, bench_actions(1, batch, dev)[0])
-    finally:
-        batched.resolve_capsule, bodies.body_contacts = k1, k3
-    return seen
+    return tick_calls(cmap, state, bench_actions(1, batch, dev)[0])[1]
 
 
 def build_variant(name, subs, out_dir):
@@ -153,6 +165,66 @@ def k1_runner(args):
     return bind
 
 
+def k2_runner(args):
+    """(launch, equals-plain) for a K2 library on captured arguments."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import ray_tris as K2
+
+    tri16, cb, origin, direction, max_dist = args
+    rays = K2._pack(origin, direction, max_dist)
+    r = rays.shape[1]
+    out = torch.empty(r, device=rays.device)
+    want = K2._ray_tris_plain(tri16, *K2.chunk_lists(cb, rays), rays)
+
+    def bind(lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f = lib.ray_tris_launch
+        f.argtypes, f.restype = [p, p, i, p, p, i, p], i
+        stream = torch.cuda.current_stream().cuda_stream
+        launch = lambda: f(tri16.data_ptr(), cb.data_ptr(), cb.shape[0], rays.data_ptr(), out.data_ptr(), r, stream)
+        return launch, lambda: torch.equal(out, want)
+    return bind
+
+
+def k5_runner(call):
+    """(launch, equals-plain) for a K5 library on one captured call."""
+    import torch
+
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
+
+    (trit, cbox, scb, h, w), kw = call
+    exclude, tile_on = kw.get("exclude"), K5._all_on(trit, h, w, kw.get("tile_on"))
+    b, _, t = trit.shape
+    z = torch.empty((b, h, w), device=trit.device)
+    win = torch.empty((b, h, w), dtype=torch.int32, device=trit.device)
+    want = K5._plain(trit, exclude, tile_on, h, w)
+
+    def bind(lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f = lib.raster_tiles_big_launch
+        f.argtypes, f.restype = [p, p, p, p, p, p, p, i, i, i, i, p], i
+        stream = torch.cuda.current_stream().cuda_stream
+        launch = lambda: f(trit.data_ptr(), cbox.data_ptr(), scb.data_ptr(),
+                           None if exclude is None else exclude.data_ptr(), tile_on.data_ptr(), z.data_ptr(),
+                           win.data_ptr(), b, t // K5.T_CHK, h // K5.TILE_H, w // K5.TILE_W, stream)
+        return launch, lambda: torch.equal(z, want[0]) and torch.equal(win, want[1])
+    return bind
+
+
+def render_pass1(name, batch, size, ticks):
+    """The (args, kwargs) of K5's pass-1 call in one render_batch of `name`
+    after `ticks` ticks of the bench stream."""
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
+    from c_game_engine_tpu_torch.profile_render import render_calls
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+
+    cmap, bundle = load_render_map(name, "cuda")
+    state = rollout(cmap, reset_batch(cmap, batch), bench_actions(ticks, batch, "cuda"))
+    return render_calls(K5, "raster_tiles_big", bundle, cmap, state, size)[0]
+
+
 def k3_runner(args):
     """(launch, equals-plain) for a K3 library on captured arguments."""
     import torch
@@ -177,24 +249,28 @@ def k3_runner(args):
     return bind
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     from c_game_engine_tpu_torch.core.state import load_map
 
     if not torch.cuda.is_available():
-        print("profile_contacts: no CUDA device", file=sys.stderr)
+        print("profile_kernels: no CUDA device", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     load = lambda name: load_map(MAPS / f"{name}.npz", MAPS / f"{name}.json", "cuda")
-    runners = {"capsule_resolve": k1_runner(capture(load("arena"), 4096, 8)["k1"][0]),
-               "body_contacts": k3_runner(capture(load("arena_bodies"), 4096, 0)["k3"][0])}
+    names = argv or list(VARIANTS)
+    arena = functools.cache(lambda: capture(load("arena"), 4096, 8))
+    runners = {"capsule_resolve": lambda: k1_runner(arena()["k1"][0]), "ray_tris": lambda: k2_runner(arena()["k2"][0]),
+               "body_contacts": lambda: k3_runner(capture(load("arena_bodies"), 4096, 0)["k3"][0]),
+               "raster_tiles_big": lambda: k5_runner(render_pass1("arena_orb", 64, 256, 60))}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, variants in VARIANTS.items():
+        for name in names:
+            variants, runner = VARIANTS[name], runners[name]()
             for variant, subs in variants.items():
                 lib, regs, spill = build_variant(name, subs, Path(tmp))
-                launch, equal = runners[name](lib)
+                launch, equal = runner(lib)
                 if launch() != 0:
                     raise RuntimeError(f"{name} ({variant}): launch failed")
                 torch.cuda.synchronize()
@@ -205,4 +281,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

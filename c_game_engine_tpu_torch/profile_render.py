@@ -25,6 +25,25 @@ import time
 KERNELS = {"raster_tiles": "raster_tiles_kernel", "raster_tiles_big": "raster_tiles_big_kernel"}
 
 
+def render_calls(module, fn_name, bundle, cmap, state, size):
+    """Run one size x size render_batch with module.fn_name wrapped and
+    return the (args, kwargs) of each of its calls, in call order."""
+    from c_game_engine_tpu_torch.render.raster import render_batch
+
+    seen, kernel = [], getattr(module, fn_name)
+
+    def rec(*a, **k):
+        seen.append((a, k))
+        return kernel(*a, **k)
+
+    setattr(module, fn_name, rec)
+    try:
+        render_batch(bundle, cmap, state, size, size)
+    finally:
+        setattr(module, fn_name, kernel)
+    return seen
+
+
 def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile

@@ -50,6 +50,30 @@ def device_summary(prof, kernel_names):
     return device_us, launches, syncs, kernels
 
 
+def tick_calls(cmap, state, acts):
+    """Run one tick and record the arguments it hands K1, K2 and K3, each
+    tensor cloned: (the next state, {"k1": [args, ...], "k2": ..., "k3": ...})."""
+    from c_game_engine_tpu_torch.core.step import step_batch
+    from c_game_engine_tpu_torch.physics import batched, bodies
+
+    seen = {"k1": [], "k2": [], "k3": []}
+    k1, k2, k3 = batched.resolve_capsule, batched.ray_tris, bodies.body_contacts
+
+    def recorder(key, fn):
+        def rec(*a):
+            seen[key].append(tuple(t.clone() if hasattr(t, "clone") else t for t in a))
+            return fn(*a)
+        return rec
+
+    batched.resolve_capsule, batched.ray_tris = recorder("k1", k1), recorder("k2", k2)
+    bodies.body_contacts = recorder("k3", k3)
+    try:
+        state = step_batch(cmap, state, acts)
+    finally:
+        batched.resolve_capsule, batched.ray_tris, bodies.body_contacts = k1, k2, k3
+    return state, seen
+
+
 def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile

@@ -12,8 +12,10 @@ pixel), and its layer is shaded on a compacted set of tiles; when some env
 has more such tiles than the budget, every env is re-shaded over the full
 frame instead.
 
-The route follows the bundle's live-triangle bound, as the JAX package's
-does on the TPU:
+`render` and `render_batch` take the JAX package's parameters in its
+order. Under backend None or "auto" the route follows the bundle's
+live-triangle bound, as the JAX package's does on the TPU ("pallas" and
+"pallas_big" force a route):
   * "tiles" (at most PALLAS_MAX_BOUND = 65,536): the T_CULL compaction,
     `_clip_near` (1 triangle -> up to 2), the tri48 table, tile binning and
     kernel K4 (ops/raster_tiles.py), which keeps each pixel's z winner and
@@ -29,10 +31,10 @@ Every function that the JAX package vmaps over envs takes a leading batch
 axis here. The JAX `lax.cond` on the reveal overflow is a host-side `if`:
 one host sync per frame batch.
 
-`render_batch` raises NotImplementedError for frames that are not whole
-8x128 tiles (the JAX XLA pass 1, `_pass1_xla`, is not ported). Not ported
-either: supersampling, anisotropic filtering, the debug wireframe, the dual
-atlas, the viewmodel and the HUD.
+`render_batch` raises NotImplementedError for backend "xla" and for frames
+that are not whole 8x128 tiles (the JAX XLA pass 1, `_pass1_xla`, is not
+ported), and for ssaa > 1, aniso > 1 with mipmaps and debug_wireframe=True.
+Not ported either: the dual atlas, the viewmodel and the HUD.
 """
 
 from __future__ import annotations
@@ -221,14 +223,36 @@ def _concat_parts(parts):
     return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
 
 
-def _resolve_backend(height, width, bundle):
-    """The route: "tiles" (K4) up to PALLAS_MAX_BOUND live triangles, "big"
-    (K5) above; raise for frames that are not whole tiles."""
+def _resolve_backend(backend, height, width, bundle):
+    """The route of the JAX `backend` as the JAX _resolve_backend picks it
+    on a TPU: "pallas" is "tiles" (K4), "pallas_big" is "big" (K5), and
+    None or "auto" is "tiles" up to PALLAS_MAX_BOUND live triangles and
+    "big" above. Raise for the XLA route, which the JAX package also takes
+    for frames that are not whole tiles."""
+    if backend not in (None, "auto", "pallas", "pallas_big", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "xla":
+        raise NotImplementedError("backend 'xla': the XLA pass 1 (_pass1_xla) is not ported")
     if height % RTILE_H or width % RTILE_W:
         raise NotImplementedError(
             f"{height}x{width} is not whole {RTILE_H}x{RTILE_W} tiles: the XLA pass 1 "
             "(_pass1_xla) that takes such frames is not ported")
-    return "big" if bundle.live_tri_bound > PALLAS_MAX_BOUND else "tiles"
+    if backend in (None, "auto"):
+        return "big" if bundle.live_tri_bound > PALLAS_MAX_BOUND else "tiles"
+    return "tiles" if backend == "pallas" else "big"
+
+
+def _check_ported(ssaa, aniso, mipmaps, debug_wireframe):
+    """Raise for the JAX render options the port does not serve yet."""
+    if ssaa > 1:
+        raise NotImplementedError(f"ssaa={ssaa}: supersampling (the JAX render_batch's ssaa > 1 branch) "
+                                  "is not ported")
+    if aniso > 1 and mipmaps:
+        raise NotImplementedError(f"aniso={aniso}: the anisotropic footprint (aniso_uv in the JAX "
+                                  "_render_env) is not ported")
+    if debug_wireframe:
+        raise NotImplementedError("debug_wireframe: render/debug_draw.py (collect_segments, "
+                                  "segments_to_part) is not ported")
 
 
 def _tile_pack(a, order_c, nty, ntx):
@@ -392,28 +416,38 @@ def yaw_sweep(state, headings):
     return [state.replace(player=p.replace(yaw=p.yaw + k * (2.0 * math.pi / headings))) for k in range(headings)]
 
 
-def render(bundle, cmap, state, height=256, width=256, fov_deg=90.0, mipmaps=True):
-    """Render one env's view (a state without a batch axis): [H, W, 3]."""
+def render(bundle, cmap, state, height=256, width=256, fov_deg=90.0, backend=None,
+           mipmaps=True, ssaa=1, aniso=0, debug_wireframe=False):
+    """Render one env's view (a state without a batch axis): [H, W, 3].
+    The JAX signature; see render_batch."""
     from c_game_engine_tpu_torch.core.state import tree_map
 
     one = tree_map(lambda x: x.unsqueeze(0), state)
-    return render_batch(bundle, cmap, one, height, width, fov_deg, mipmaps)[0]
+    return render_batch(bundle, cmap, one, height, width, fov_deg, backend, mipmaps, ssaa, aniso,
+                        debug_wireframe)[0]
 
 
-def render_batch(bundle, cmap, states, height=256, width=256, fov_deg=90.0, mipmaps=True):
+def render_batch(bundle, cmap, states, height=256, width=256, fov_deg=90.0, backend=None,
+                 mipmaps=True, ssaa=1, aniso=0, debug_wireframe=False):
     """Render every env of a batched state: f32 [B, H, W, 3] in [0, 1].
-    mipmaps=False samples base levels only."""
-    rgb_cmp, overflow, ctx = _render_envs(bundle, cmap, states, height, width, fov_deg, mipmaps)
+    The JAX signature, in its order. backend None, "auto", "pallas" or
+    "pallas_big" picks the route as on a TPU (_resolve_backend);
+    mipmaps=False samples base levels only; ssaa=1, aniso at most 1 (or
+    any without mipmaps, where the JAX package samples isotropically too)
+    and debug_wireframe=False are served, and the rest raises
+    NotImplementedError naming the JAX code not ported."""
+    _check_ported(ssaa, aniso, mipmaps, debug_wireframe)
+    rgb_cmp, overflow, ctx = _render_envs(bundle, cmap, states, height, width, fov_deg, mipmaps, backend)
     if ctx is None or not bool(overflow.any()):  # a host sync (JAX: lax.cond)
         return rgb_cmp
     return _finish_reveal_full(bundle, ctx, states, height, width, mipmaps)
 
 
-def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps):
+def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=None):
     """The batch's pipeline. Returns (rgb, reveal_overflow [B], ctx): ctx is
     None when the map has no alpha content; otherwise rgb has the
     tile-compacted reveal, and ctx carries what _finish_reveal_full needs."""
-    route = _resolve_backend(height, width, bundle)
+    route = _resolve_backend(backend, height, width, bundle)
     vp, cam_pos = camera_matrix(cmap, state, width, height, fov_deg)
     parts = gather_triangles(bundle, cmap, state, camera_pos_hint=cam_pos)
     b = cam_pos.shape[0]

@@ -8,8 +8,10 @@ Phases (any failure exits non-zero and prints no result line):
      with nvcc for sm_90a, one nvcc per source, all at once;
   3. kernel phase: the capsule-resolve (K1) and ray (K2) kernels against
      their plain PyTorch versions on the card, on the inputs a tick of a
-     4096-env run of the arena map hands them (K1 bit for bit, on its main
-     and its stick-to-floor launch; K2 within TOL); then the body-contact
+     4096-env run of the arena map hands them, bit for bit (K1 on its main
+     and its stick-to-floor launch; K2 on the merged ray launch's 8192
+     rays, timed as the wrapper and as the kernel alone without `_pack`);
+     then the body-contact
      kernel (K3) likewise, bit for bit, on the inputs a 4096-env tick of
      arena_bodies hands it (every body awake, the hull bodies present);
      K1's and K3's wrapper times come with their chunk-list ops' share;
@@ -17,7 +19,12 @@ Phases (any failure exits non-zero and prints no result line):
      kernel (K4) on the inputs one 64-env 256 x 256 render_batch of
      arena_lit hands it, for pass 1 and for the reveal pass; then the
      streamed raster kernel (K5) likewise on arena_orb (82,568 live
-     triangles: the big route, on which K4 never launches);
+     triangles: the big route, on which K4 never launches), bit for bit,
+     with two bounds: the work the function needs (each edge function's
+     per-row, per-line and per-column factors once, its final subtraction
+     and the inside test on every hit pair, z and the division only on the
+     pairs that are inside), and the earlier count that charged every hit
+     pair 40 flops;
   4. reference checks: 30 ticks at 256 envs of each tick map on the card
      against the same ticks run by the plain versions on the CPU; then 4
      envs after 30 ticks, one per sweep heading, rendered at 256 x 256 on
@@ -50,7 +57,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BATCH, TICKS = 4096, 240
-TOL = 1e-5
+TOL = 1e-5  # K4's float planes, the one kernel check not yet bit for bit
 KERNELS = ("capsule_resolve", "ray_tris", "body_contacts", "raster_tiles", "raster_tiles_big")
 # the render main path: bench_render's batch, size and sweep
 RENDER_BATCH, SIZE, HEADINGS, RENDER_TICKS = 64, 256, 4, 60
@@ -70,9 +77,17 @@ K3_BOX_PAIR_FLOPS, K3_VERTEX_FLOPS = 256, 7
 # functions, denominator, affine z, the compares); the winner's attributes
 # ~80 once per covered pixel (barycentrics, 1/w, eight interpolations)
 K4_PAIR_FLOPS, K4_PIXEL_FLOPS = 40, 80
-# K5: the same z test per (pixel, row) pair whose row's bbox overlaps the
-# pixel's tile; no attributes
-K5_PAIR_FLOPS = 40
+# K5, counted where the function needs each operation: per (row, tile) whose
+# row's bbox overlaps the tile, the edges' six coordinate differences; per
+# (row, pixel line) and per (row, pixel column) of that tile, one difference
+# and one product for each of the three edges; per (pixel, row) pair, each
+# edge function's final subtraction and the inside test's 6 compares; on
+# the pairs that are inside, the denominator (3), affine z with its division
+# (6) and the four compares of the strictly-closer test; no attributes.
+# The earlier count charged every pair 40 (27 for the edge functions and
+# inside test, 13 for z), K5_EVERY_PAIR_FLOPS.
+K5_ROW_FLOPS, K5_LINE_FLOPS, K5_PAIR_FLOPS, K5_INSIDE_FLOPS = 6, 6, 9, 13
+K5_EVERY_PAIR_FLOPS = 40
 
 
 def kernel_modules():
@@ -175,36 +190,14 @@ def k3_bound(args):
     return bound_ms(flops, nbytes)
 
 
-def capture_kernel_inputs(cmap, state, acts):
-    """Run one tick and record the arguments the tick hands K1, K2 and K3."""
-    from c_game_engine_tpu_torch.core.step import step_batch
-    from c_game_engine_tpu_torch.physics import batched, bodies
-
-    seen = {"k1": [], "k2": [], "k3": []}
-    k1, k2, k3 = batched.resolve_capsule, batched.ray_tris, bodies.body_contacts
-
-    def recorder(key, fn):
-        def rec(*a):
-            seen[key].append(tuple(t.clone() if hasattr(t, "clone") else t for t in a))
-            return fn(*a)
-        return rec
-
-    batched.resolve_capsule, batched.ray_tris = recorder("k1", k1), recorder("k2", k2)
-    bodies.body_contacts = recorder("k3", k3)
-    try:
-        state = step_batch(cmap, state, acts)
-    finally:
-        batched.resolve_capsule, batched.ray_tris, bodies.body_contacts = k1, k2, k3
-    return state, seen
-
-
 def kernel_phase(cmap, state, acts):
     import torch
 
     from c_game_engine_tpu_torch.ops import capsule_resolve as K1
     from c_game_engine_tpu_torch.ops import ray_tris as K2
+    from c_game_engine_tpu_torch.profile_tick import tick_calls
 
-    _, seen = capture_kernel_inputs(cmap, state, acts)
+    _, seen = tick_calls(cmap, state, acts)
     main = seen["k1"][0]
     assert main[4].shape[0] == 2 * BATCH, f"K1 main launch has {main[4].shape[0]} lanes"
     tri16, cb, box8, boxh, pos, vel = main
@@ -235,19 +228,17 @@ def kernel_phase(cmap, state, acts):
     tk = K2.ray_tris(*rays)
     tp = K2.ray_tris_plain(*rays)
     torch.cuda.synchronize()
-    hit_k, hit_p = tk < 1e29, tp < 1e29
-    md = max_dist if isinstance(max_dist, torch.Tensor) else torch.full_like(tk, max_dist)
-    edge = (tk - md).abs().le(TOL) | (tp - md).abs().le(TOL)
-    if bool(((hit_k != hit_p) & ~edge).any()):
-        raise AssertionError("K2 hit/miss disagrees with its plain version")
-    both = hit_k & hit_p
-    k2_err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) else 0.0
-    if not k2_err <= TOL:
-        raise AssertionError(f"K2 t disagrees with its plain version: {k2_err}")
-    k2_ms = (cuda_time(lambda: K2.ray_tris(*rays)), cuda_time(lambda: K2.ray_tris_plain(*rays)))
+    k2_err = float((tk - tp).abs().max())
+    if not torch.equal(tk, tp):
+        raise AssertionError(f"K2 differs from its plain version at {int((tk != tp).sum())} rays: "
+                             f"max err {k2_err}")
+    packed = K2._pack(origin, direction, max_dist)
+    k2_ms = (cuda_time(lambda: K2.ray_tris(*rays)), cuda_time(lambda: K2.ray_tris_plain(*rays)),
+             cuda_time(lambda: K2._launch(tri16, cb, packed)))
     k2_b, k2_by = k2_bound(rays)
-    print(f"K2 ray_tris {origin.shape[0]} rays: kernel {k2_ms[0]:.4f} ms, plain {k2_ms[1]:.4f} ms, "
-          f"max abs err {k2_err:.3g}, hits {int(hit_k.sum())}", flush=True)
+    print(f"K2 ray_tris {origin.shape[0]} rays: kernel {k2_ms[0]:.4f} ms (alone, without _pack, "
+          f"{k2_ms[2]:.4f} ms), plain {k2_ms[1]:.4f} ms, bitwise equal, hits {int((tk < 1e29).sum())}, "
+          f"bound {k2_b:.4f} ms ({k2_by})", flush=True)
     return [
         {"name": "capsule_resolve", "route": "cuda",
          "source": "c_game_engine_tpu_torch/csrc/capsule_resolve.cu",
@@ -259,7 +250,7 @@ def kernel_phase(cmap, state, acts):
          "source": "c_game_engine_tpu_torch/csrc/ray_tris.cu",
          "replaces": "c_game_engine_tpu/ops/ray_tris.py:64",
          "max_abs_err": k2_err, "ms": k2_ms[0], "plain_ms": k2_ms[1],
-         "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None, "ms_kernel_alone": k2_ms[2]},
     ]
 
 
@@ -268,8 +259,9 @@ def body_kernel_phase(cmap, state, acts):
     import torch
 
     from c_game_engine_tpu_torch.ops import body_contacts as K3
+    from c_game_engine_tpu_torch.profile_tick import tick_calls
 
-    _, seen = capture_kernel_inputs(cmap, state, acts)
+    _, seen = tick_calls(cmap, state, acts)
     if len(seen["k3"]) != 1:
         raise AssertionError(f"the tick launched K3 {len(seen['k3'])} times, expected 1")
     args = seen["k3"][0]
@@ -401,10 +393,13 @@ def k5_bound(args, kwargs, planes):
     """Bytes: the 14 columns of the rows whose bbox overlaps an enabled
     tile, tile_on (if given), the exclude ids of the enabled tiles' pixels
     (none without an exclude image) and the two output planes; operations:
-    the z test of every (pixel, row) pair whose row overlaps the pixel's
-    enabled tile. The chunk and subchunk boxes only prune, so the function
-    needs none of their bytes. Returns (ms, bound by, what the print
-    adds)."""
+    each (row, tile) overlap's per-row, per-line and per-column factors of
+    the edge functions, each (pixel, row) pair's final subtractions and
+    inside test, and z with its division on the pairs that are inside. The
+    chunk and subchunk boxes only prune, so the function needs none of
+    their bytes. Returns (ms, bound by, what the print adds); the print
+    also gives the bound by the earlier count (K5_EVERY_PAIR_FLOPS on every
+    pair)."""
     from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
 
     trit, cbox, scb, h, w = args
@@ -412,34 +407,28 @@ def k5_bound(args, kwargs, planes):
     b, _, t = trit.shape
     idx, cnt = K5.tile_lists(trit, h, w, tile_on)
     n_rows = distinct_listed(idx, cnt, t)
-    pairs = int(cnt.sum()) * K5.TILE_H * K5.TILE_W
+    overlaps = int(cnt.sum())
+    pairs = overlaps * K5.TILE_H * K5.TILE_W
     pixels = b * h * w
     on_pixels = pixels if tile_on is None else int((tile_on != 0).sum()) * K5.TILE_H * K5.TILE_W
     nbytes = (n_rows * 14 * 4 + (0 if tile_on is None else tile_on.numel() * 4)
               + (0 if exclude is None else on_pixels * 4) + 2 * pixels * 4)
+    inside = K5.inside_pairs(trit, h, w, tile_on)
     live = int((trit[:, 10] <= trit[:, 11]).sum())
-    return (*bound_ms(K5_PAIR_FLOPS * pairs, nbytes),
-            f"T {t}, NC {cbox.shape[1]}, {live} live rows, {n_rows} hit rows, {pairs} hit pairs")
+    per_overlap = K5_ROW_FLOPS + K5_LINE_FLOPS * (K5.TILE_H + K5.TILE_W)
+    every, _ = bound_ms(K5_EVERY_PAIR_FLOPS * pairs, nbytes)
+    return (*bound_ms(per_overlap * overlaps + K5_PAIR_FLOPS * pairs + K5_INSIDE_FLOPS * inside, nbytes),
+            f"T {t}, NC {cbox.shape[1]}, {live} live rows, {n_rows} hit rows, {pairs} hit pairs, "
+            f"{inside} inside; bound {every:.4f} ms by the earlier count, {K5_EVERY_PAIR_FLOPS} flops a pair")
 
 
 def capture_passes(module, fn_name, cmap, bundle, state):
-    """Run one SIZE x SIZE render_batch with module.fn_name wrapped and
-    return the (args, kwargs) of each of its calls, and the launches of
-    every kernel during it."""
-    from c_game_engine_tpu_torch.render.raster import render_batch
-
-    seen, kernel = [], getattr(module, fn_name)
-
-    def rec(*a, **k):
-        seen.append((a, k))
-        return kernel(*a, **k)
+    """The (args, kwargs) of each call of module.fn_name in one SIZE x SIZE
+    render_batch, and the launches of every kernel during it."""
+    from c_game_engine_tpu_torch.profile_render import render_calls
 
     before = read_counts()
-    setattr(module, fn_name, rec)
-    try:
-        render_batch(bundle, cmap, state, SIZE, SIZE)
-    finally:
-        setattr(module, fn_name, kernel)
+    seen = render_calls(module, fn_name, bundle, cmap, state, SIZE)
     return seen, {k: v - before[k] for k, v in read_counts().items()}
 
 

@@ -4,8 +4,9 @@ The port's kernels K1 (ops/capsule_resolve.py) and K2 (ops/ray_tris.py)
 run here as their plain PyTorch versions (CPU tensors); the references are
 the Pallas kernels themselves in TPU interpret mode, on the same inputs
 made with numpy from a seed (K1 also on a small table of exact ties,
-tests/torch_inputs.py::_capsule_tie_inputs). chunk_compact is held to
-exact equality.
+tests/torch_inputs.py::_capsule_tie_inputs; K2 also on an edge table of
+exact hits, tests/torch_inputs.py::k2_edge_inputs). chunk_compact is held
+to exact equality.
 
 Tolerances: 1e-5 absolute for positions and ray t, and 1e-5 relative to
 the lane's speed for velocities (the two sides differ only in float
@@ -149,6 +150,33 @@ def test_ray_tris_matches_pallas_kernel(maps):
     assert (tj < 1e29).sum() > r // 4
 
 
+def test_ray_tris_edge_table_matches_pallas_kernel():
+    """K2's plain version against ray_tris_pallas in interpret mode on the
+    edge table of tests/torch_inputs.py::k2_edge_inputs (rays on shared
+    edges and vertices, in one chunk and across chunks; hits at exactly
+    max_dist; rays parallel to the floors; blocks whose box touches a chunk
+    bound exactly, or stops one float short of one; a NaN origin; R not a
+    multiple of 128), with the bars of test_ray_tris_matches_pallas_kernel;
+    both also equal the table's exact t for every built ray."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from c_game_engine_tpu.ops.ray_tris import ray_tris_pallas
+    from c_game_engine_tpu_torch.ops import ray_tris as k2
+    from tests.torch_inputs import k2_edge_inputs
+
+    *args, expect = k2_edge_inputs()
+    with pltpu.force_tpu_interpret_mode():
+        tj = np.asarray(ray_tris_pallas(*(jnp.asarray(a) for a in args)))
+    tt = k2.ray_tris(*(torch.as_tensor(a) for a in args)).numpy()
+    np.testing.assert_array_equal(tt < 1e29, tj < 1e29)
+    np.testing.assert_allclose(tt, tj, atol=1e-5, rtol=0)
+    built = ~np.isnan(expect)
+    np.testing.assert_array_equal(tt[built], expect[built])
+    np.testing.assert_array_equal(tj[built], expect[built])
+    assert (tt[~built] < 1e29).sum() > 8  # the random rays hit too
+
+
 def test_wrappers_check_inputs_and_devices(maps):
     """Bad shapes raise; a tensor that is neither on the CPU nor on a CUDA
     device gets no fallback."""
@@ -166,3 +194,5 @@ def test_wrappers_check_inputs_and_devices(maps):
         k2.ray_tris(*(a.to("meta") for a in (tc.tri16, tc.chunk_bounds, o, o)), 10.0)
     with pytest.raises(TypeError):
         k2.ray_tris(tc.tri16, tc.chunk_bounds, o.double(), o.double(), 10.0)
+    with pytest.raises(ValueError, match="chunk_bounds"):  # the kernel reads 4 bounds a chunk
+        k2.ray_tris(tc.tri16, tc.chunk_bounds[:, :3], o, o, 10.0)

@@ -3,7 +3,8 @@ math, texture sampling, tile binning, the tile kernel K4's plain version
 (against the Pallas kernel in interpret mode), the near-plane clip, a
 whole `render_batch` of the arena_lit map, the compacted reveal pass, far
 geometry (hazard a of ROADMAP.md §3), the actor-model rows of the
-triangle soup, and the frames the port raises on. Inputs are made from
+triangle soup, the JAX signature of render/render_batch, and the frames
+and options the port raises on. Inputs are made from
 numpy seeds; the port reads the committed arena_lit files
 (tests/torch_export_map.py).
 
@@ -481,17 +482,65 @@ def test_gather_triangles_model_branch_matches_jax(lit):
     assert got["valid"][1][model_rows].tolist() == [False] * 4 + [True] * 2  # far: LOD 1
 
 
-@pytest.mark.parametrize("case", ["beyond_k4_table", "not_whole_tiles"])
+@pytest.mark.parametrize("case", ["beyond_k4_table", "not_whole_tiles", "xla", "pallas_big_not_whole_tiles",
+                                  "ssaa", "aniso", "debug_wireframe", "unknown_backend"])
 def test_unported_routes_raise(lit, case):
-    """A frame that is not whole 8 x 128 tiles (the JAX package's XLA pass
-    1, not ported) raises naming what is missing, on the tile route and on
-    the big route that a bundle beyond 65,536 live triangles takes (K5;
-    tests/test_torch_render_big.py renders that route)."""
+    """What the port does not serve raises, naming what is missing: a frame
+    that is not whole 8 x 128 tiles (the JAX package's XLA pass 1, not
+    ported), on the tile route, on the big route that a bundle beyond
+    65,536 live triangles takes (K5; tests/test_torch_render_big.py renders
+    that route) and on the big route forced with backend "pallas_big";
+    backend "xla"; ssaa > 1; aniso > 1 with mipmaps; debug_wireframe=True;
+    an unknown backend is a ValueError."""
     from c_game_engine_tpu_torch.models.sim import reset_batch
-    from c_game_engine_tpu_torch.render.raster import render_batch
+    from c_game_engine_tpu_torch.render.raster import render, render_batch
 
     cm, rb = lit
     st = reset_batch(cm, 1)
     bundle = dataclasses.replace(rb, live_tri_bound=65537) if case == "beyond_k4_table" else rb
-    with pytest.raises(NotImplementedError, match="_pass1_xla"):
-        render_batch(bundle, cm, st, 100, 128)
+    calls = {
+        "beyond_k4_table": (lambda: render_batch(bundle, cm, st, 100, 128), NotImplementedError, "_pass1_xla"),
+        "not_whole_tiles": (lambda: render_batch(bundle, cm, st, 100, 128), NotImplementedError, "_pass1_xla"),
+        "pallas_big_not_whole_tiles": (lambda: render_batch(rb, cm, st, 128, 100, 90.0, "pallas_big"),
+                                       NotImplementedError, "_pass1_xla"),
+        "xla": (lambda: render_batch(rb, cm, st, H, W, backend="xla"), NotImplementedError, "_pass1_xla"),
+        "ssaa": (lambda: render(rb, cm, st, H, W, 90.0, None, True, 2), NotImplementedError, "supersampling"),
+        "aniso": (lambda: render_batch(rb, cm, st, H, W, aniso=4), NotImplementedError, "aniso_uv"),
+        "debug_wireframe": (lambda: render_batch(rb, cm, st, H, W, debug_wireframe=True), NotImplementedError,
+                            "debug_draw"),
+        "unknown_backend": (lambda: render_batch(rb, cm, st, H, W, backend="cuda"), ValueError, "backend"),
+    }
+    fn, exc, match = calls[case]
+    with pytest.raises(exc, match=match):
+        fn()
+
+
+def test_render_takes_the_jax_signature(lit, monkeypatch):
+    """render and render_batch take the JAX parameters in the JAX order
+    (fov_deg, backend, mipmaps, ssaa, aniso, debug_wireframe): a call
+    written for the JAX package renders the frame of the keyword call;
+    backend "pallas_big" forces the big route (two K5 calls: pass 1 and
+    the reveal) and "pallas" and "auto" keep arena_lit on the tile route;
+    aniso 1, and aniso 4 without mipmaps, sample as aniso 0 does, as in
+    the JAX package."""
+    from c_game_engine_tpu_torch.core.state import tree_map
+    from c_game_engine_tpu_torch.models.sim import reset_batch
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
+    from c_game_engine_tpu_torch.render.raster import render, render_batch
+
+    cm, rb = lit
+    st = reset_batch(cm, 1)
+    st = st.replace(player=st.player.replace(yaw=st.player.yaw + 0.3))
+    seen, kernel = [], K5.raster_tiles_big
+    monkeypatch.setattr(K5, "raster_tiles_big", lambda *a, **k: seen.append(1) or kernel(*a, **k))
+    want = render_batch(rb, cm, st, H, W, fov_deg=80.0, mipmaps=False)
+    assert torch.equal(render_batch(rb, cm, st, H, W, 80.0, None, False), want)
+    assert torch.equal(render_batch(rb, cm, st, H, W, 80.0, "pallas", False, 1, 4, False), want)
+    one = tree_map(lambda x: x[0], st)
+    assert torch.equal(render(rb, cm, one, H, W, 80.0, "auto", False), want[0])
+    base = render_batch(rb, cm, st, H, W)
+    assert torch.equal(render_batch(rb, cm, st, H, W, 90.0, None, True, 1, 1), base)
+    assert not seen
+    big = render_batch(rb, cm, st, H, W, 90.0, "pallas_big")
+    assert len(seen) == 2
+    assert float((big - base).abs().amax(-1).gt(1 / 255).float().mean()) <= 0.002

@@ -136,16 +136,21 @@ def _brute_force(trit, exclude, tile_on, height, width):
     return zbuf, win
 
 
-def test_raster_tiles_big_plain_matches_brute_force():
-    """(c) two chunks at 32 x 128 and two envs, a gated tile (it keeps the
-    initial values) and an exclude image: the plain version and the CPU
-    route equal a numpy float32 brute force bit for bit."""
+@pytest.mark.parametrize("kind", ["random", "subpixel"])
+def test_raster_tiles_big_plain_matches_brute_force(kind):
+    """(c) two chunks and two envs, a gated tile (it keeps the initial
+    values) and an exclude image: the plain version and the CPU route
+    equal a numpy float32 brute force bit for bit. "random": 32 x 128, the
+    random table of k5_inputs; "subpixel": 8 x 256, sub-pixel triangles
+    clustered in each tile column, equal-z twins among them, and hit
+    subchunks interleaved with dead ones and with the other column's in
+    both chunks (k5_inputs(kind="subpixel"))."""
     from c_game_engine_tpu_torch.ops.raster_tiles_big import T_CHK, raster_tiles_big, raster_tiles_big_plain
 
-    h, w = 32, 128
-    trit, excl = k5_inputs(seed=4, batch=2, height=h, width=w, t=2 * T_CHK)
-    tile_on = np.ones((2, h // 8), np.int32)
-    tile_on[1, 2] = 0
+    h, w, seed, gated = (32, 128, 4, (1, 2)) if kind == "random" else (8, 256, 5, (1, 1))
+    trit, excl = k5_inputs(seed=seed, batch=2, height=h, width=w, t=2 * T_CHK, kind=kind)
+    tile_on = np.ones((2, (h // 8) * (w // 128)), np.int32)
+    tile_on[gated] = 0
     cbox, scb = _levels(torch.tensor(trit))
     args = (torch.tensor(trit), cbox, scb, h, w)
     kw = dict(exclude=torch.tensor(excl), tile_on=torch.tensor(tile_on))
@@ -156,9 +161,19 @@ def test_raster_tiles_big_plain_matches_brute_force():
         zref, wref = _brute_force(trit[e], excl[e], tile_on[e], h, w)
         np.testing.assert_array_equal(win[e].numpy(), wref)
         np.testing.assert_array_equal(z[e].numpy(), zref)
-    assert (win[1, 16:24].numpy() == -1).all() and torch.isinf(z[1, 16:24]).all()
-    assert (win[0, 16:24].numpy() >= T_CHK).any()  # the second chunk wins pixels
-    assert (win.numpy() >= 0).mean() > 0.3
+    if kind == "random":
+        assert (win[1, 16:24].numpy() == -1).all() and torch.isinf(z[1, 16:24]).all()
+        assert (win[0, 16:24].numpy() >= T_CHK).any()  # the second chunk wins pixels
+        assert (win.numpy() >= 0).mean() > 0.3
+        return
+    wn = win.numpy()
+    assert (wn[1, :, 128:] == -1).all() and torch.isinf(z[1, :, 128:]).all()
+    for col in (wn[:, :, 4:60], wn[0, :, 132:188]):  # the clusters: both chunks win pixels
+        assert (col >= 0).mean() > 0.4 and (col >= T_CHK).any() and ((col >= 0) & (col < T_CHK)).any()
+    sub = wn // 64 % 3
+    assert ((sub[:, :, :128] == 0) | (wn[:, :, :128] < 0)).all()  # column 0 is won by its own rows only
+    assert len(np.unique(wn[wn >= 0])) > 500  # hundreds of sub-pixel winners
+    assert (wn[excl >= 0] >= 0).mean() > 0.3  # an excluded pixel can still be won
 
 
 def test_clip_near_compact_matches_jax():

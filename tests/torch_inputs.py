@@ -306,10 +306,10 @@ def k4_inputs(seed, batch=2, height=32, width=256, t=120):
     return tri48, sx.copy(), sy.copy(), tri_ok, exclude
 
 
-def k5_inputs(seed, batch=1, height=8, width=128, t=4096):
+def k5_inputs(seed, batch=1, height=8, width=128, t=4096, kind="random"):
     """A random fields-major table for the streamed kernel K5, per env:
     trit [B, 16, T] (ops/raster_tiles_big.py layout) and exclude [B, H, W]
-    i32.
+    i32; kind "subpixel" gives the table of `_k5_subpixel` instead.
 
     About one row in eight is live, and four runs of 64 rows (whole
     subchunks) are dead throughout, so subchunk tests skip; dead rows carry
@@ -320,6 +320,8 @@ def k5_inputs(seed, batch=1, height=8, width=128, t=4096):
     them, which must lose every pixel to it. A third of the pixels exclude
     a random live id."""
     rng = np.random.default_rng(seed)
+    if kind == "subpixel":
+        return _k5_subpixel(rng, batch, height, width, t)
     trit = np.zeros((batch, 16, t), np.float32)
     exclude = np.full((batch, height, width), -1, np.int32)
     for b in range(batch):
@@ -346,4 +348,174 @@ def k5_inputs(seed, batch=1, height=8, width=128, t=4096):
         trit[b, 13] = np.where(live, v[..., 1].max(1), -1e30)
         pick = rng.random((height, width)) < 0.33
         exclude[b][pick] = rng.choice(np.nonzero(live)[0], int(pick.sum()))
+    return trit, exclude
+
+
+def k2_edge_inputs():
+    """(tri16 [192, 16], chunk bounds [6, 4], origin [704, 3], direction
+    [704, 3], max_dist [704], expect [704], all float32) for the ray kernel K2: rays
+    that sit exactly on the edges the kernel's chunk lists and hit tests
+    decide, in five 128-ray blocks and a last block of 64 rays (R is not a
+    multiple of 128). `expect` is each built ray's t (1e30 a miss), NaN for
+    the random rays. Every coordinate is a multiple of 1/4 and every
+    triangle a unit right triangle, so each t below is exact in float32
+    whatever the evaluation order.
+
+    Table: chunks 0-3 are floors of unit squares (two triangles each) over
+    x in [0, 8] and z in [2c, 2c + 2], at y = -0.25, 0, 0, -0.25; chunk 4
+    holds 8 floor triangles over x in [10, 12], z in [0, 2] at y = 0 and 24
+    invalid rows at y = 0.5 above them; chunk 5 holds one triangle at
+    y = 0.5 over x in [7.5, 11.5] whose declared bound starts one float
+    above x = 10, so no block below reaches it.
+
+    Blocks (vertical rays from y = 1 unless said otherwise):
+    0. x in [0, 8], z in [0, 2], on vertices, edges and diagonals; the
+       block's box touches chunk 1 only at z = 2, where chunk 1 (t 1) is
+       above chunk 0 (t 1.25): a list one chunk short changes t;
+    1. z in [6, 8]: chunk 2 (t 1) reached only at z = 6;
+    2. x in [8, 10], z in [0, 2]: chunk 0 at x = 8 (t 1.25) and chunk 4 at
+       x = 10 (t 1) reached only at the box's edges; between them nothing
+       (chunk 5, listed one chunk long, would give t 0.5);
+    3. z = 4: the shared edge of chunks 1 and 2, both at y = 0;
+    4. one ray with a NaN origin among rays over chunk 1: the block's box
+       is NaN, so it lists no chunk and every ray misses (as
+       compact_chunk_lists lists none on NaN extents);
+    5. rays parallel to the floors (in and above their planes), hits at
+       exactly max_dist and one float short of it, oblique rays with exact
+       hits, and random rays, mostly downward."""
+    rows = np.zeros((192, 16), np.float32)
+    r = 0
+
+    def tri(a, b, c, valid=1.0):
+        nonlocal r
+        rows[r, 0:9] = np.array([a, b, c], np.float32).reshape(9)
+        rows[r, 9:13] = (0.0, 1.0, 0.0, valid)
+        r += 1
+
+    def square(x, y, z, valid=1.0):
+        tri((x, y, z), (x + 1, y, z), (x + 1, y, z + 1), valid)
+        tri((x, y, z), (x + 1, y, z + 1), (x, y, z + 1), valid)
+
+    heights = (-0.25, 0.0, 0.0, -0.25)
+    for c, y in enumerate(heights):
+        for j in range(2):
+            for i in range(8):
+                square(i, y, 2 * c + j)
+    for j in range(2):
+        for i in range(2):
+            square(10 + i, 0.0, j)
+    while r < 160:
+        tri((9.5, 0.5, -1.0), (13.0, 0.5, -1.0), (9.5, 0.5, 3.0), valid=0.0)
+    tri((7.5, 0.5, -1.0), (13.0, 0.5, -1.0), (7.5, 0.5, 10.0))
+    above_ten = np.nextafter(np.float32(10.0), np.float32(np.inf))
+    bounds = np.array([[0, 0, 8, 2], [0, 2, 8, 4], [0, 4, 8, 6], [0, 6, 8, 8], [10, 0, 12, 2],
+                       [above_ten, -1, 13, 10]], np.float32)
+
+    rng = np.random.default_rng(12)
+    down = (0.0, -1.0, 0.0)
+    origin, direction, max_dist, expect = [], [], [], []
+
+    def ray(o, d=down, m=2.0, t=np.nan):
+        origin.append(o)
+        direction.append(d)
+        max_dist.append(m)
+        expect.append(t)
+
+    def floor_t(x, z):
+        """t of a vertical ray from y = 1 at (x, z) over chunks 0-4."""
+        if 10 <= x <= 12 and 0 <= z <= 2:
+            return 1.0
+        ts = [1.0 - y for c, y in enumerate(heights) if 0 <= x <= 8 and 2 * c <= z <= 2 * c + 2]
+        return min(ts, default=1e30)
+
+    def block(points, filler):
+        points = (points + filler)[:128]
+        assert len(points) == 128
+        for x, z in points:
+            ray((x, 1.0, z), t=floor_t(x, z))
+
+    grid = lambda xs, zs: [(float(x), float(z)) for z in zs for x in xs]
+    line = lambda x0, z: [(float(x), z) for x in np.arange(x0, 8, 0.25)]
+    # 0: the box touches chunk 1 at z = 2
+    block(grid(range(9), (0.0, 1.0, 2.0)) + grid(np.arange(8) + 0.5, (0.0, 1.0, 2.0))
+          + grid(np.arange(8) + 0.25, (0.25, 1.25)) + grid(np.arange(8) + 0.75, (0.75, 1.5)),
+          line(0.0, 2.0) + line(0.125, 2.0))
+    # 1: the box touches chunk 2 at z = 6
+    block(grid(range(9), (6.0, 7.0, 8.0)) + grid(np.arange(8) + 0.5, (6.0, 7.5))
+          + grid(np.arange(8) + 0.25, (6.25, 7.25)), line(0.0, 6.0) + line(0.125, 6.0) + line(0.0625, 6.0))
+    # 2: the box touches chunk 0 at x = 8 and chunk 4 at x = 10; nothing between
+    zs = np.arange(0, 2.25, 0.25)
+    block(grid((8.0, 10.0), zs) + grid(np.arange(8.25, 10, 0.25), zs),
+          grid((10.0, 8.0), np.arange(0.0625, 2, 0.125)) + grid((10.0, 8.0), np.arange(0.03125, 2, 0.125)))
+    # 3: the shared edge of chunks 1 and 2 at z = 4
+    block(line(0.0, 4.0) + line(0.125, 4.0) + grid(np.arange(0.25, 8, 0.5), (3.75, 4.25))
+          + grid(np.arange(0.5, 8, 1.0), (3.5, 4.5)), line(0.0625, 4.0))
+    # 4: a NaN origin empties the block's list
+    for k in range(128):
+        ray((0.5 + (k % 8), 1.0, 2.25 + 0.125 * (k // 8)), t=1e30)
+    origin[-1] = (np.nan, 1.0, 3.0)
+    # 5: 64 rays, then the 64 padded lanes
+    for k in range(4):  # parallel to the floors: in the y = 0 and y = -0.25 planes, and above
+        ray((-1.0, 0.0, 2.5 + k), (1.0, 0.0, 0.0), 20.0, 1e30)
+        ray((-1.0, -0.25, 0.5 + 0.5 * k), (1.0, 0.0, 0.0), 20.0, 1e30)
+        ray((-1.0, 0.125, 2.0 + k), (1.0, 0.0, 1.0), 20.0, 1e30)
+    for k in range(8):  # hits at exactly max_dist, and one float short of it
+        ray((0.5 + 0.5 * k, 1.0, 2.5), m=1.0, t=1.0)
+        ray((0.25 + k, 1.0, 3.5), m=float(np.nextafter(np.float32(1.0), np.float32(0.0))), t=1e30)
+    for k in range(8):  # oblique, exact: (1, -1, 0) and (0.5, -1, 0.25) from y = 1 onto y = 0
+        ray((0.25 + 0.5 * k, 1.0, 2.5), (1.0, -1.0, 0.0), 2.0, 1.0)
+        ray((0.5 + 0.5 * k, 1.0, 4.0), (0.5, -1.0, 0.25), 2.0, 1.0)
+    n = 64 - (len(origin) - 640)
+    o = np.stack([rng.uniform(0, 8, n), rng.uniform(0.1, 2.0, n), rng.uniform(0, 8, n)], 1)
+    d = rng.normal(size=(n, 3))
+    d[:, 1] = -np.abs(d[:, 1]) - 0.5  # mostly down, onto the table
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    for k in range(n):
+        ray(tuple(o[k]), tuple(d[k]), float(rng.uniform(2.0, 8.0)))
+    f32 = lambda a: np.asarray(a, np.float32)
+    return rows, bounds, f32(origin), f32(direction), f32(max_dist), f32(expect)
+
+
+def _k5_subpixel(rng, batch, height, width, t):
+    """A table of sub-pixel triangles, as a far, finely tessellated model
+    gives (the arena_orb sphere's triangles cover about a pixel each), for
+    a frame of two tile columns (width 256, height 8 or more).
+
+    Subchunks of 64 rows take turns across the whole table, both chunks
+    alike: s % 3 == 0 holds rows clustered in the left half of tile column
+    0, s % 3 == 1 only dead rows, s % 3 == 2 rows clustered in tile column
+    1, which tile column 0's lists must leave out (and column 1's keep).
+    Half of the rows of a live subchunk are live, at random places. Live
+    rows are well-shaped triangles with a circumradius of 0.2-0.9 px (most
+    cover no pixel centre or one; about 1,400 per tile over 512 pixels
+    overlap one another) at z from 0.1 to 0.9; after every tenth live row
+    comes its equal-z twin, which must lose every pixel to it. A third of
+    the pixels exclude a live row whose bbox holds the pixel's centre."""
+    assert width == 256 and height % 8 == 0
+    trit = np.zeros((batch, 16, t), np.float32)
+    exclude = np.full((batch, height, width), -1, np.int32)
+    sub = np.arange(t) // 64 % 3
+    for b in range(batch):
+        live = (sub != 1) & (rng.random(t) < 0.5)
+        cx = rng.uniform(4, 60, t) + np.where(sub == 2, 128.0, 0.0)
+        cy = rng.uniform(0.5, height - 0.5, t)
+        ang = rng.uniform(0, 2 * np.pi, (t, 1)) + np.arange(3) * (2 * np.pi / 3) + rng.uniform(-0.5, 0.5, (t, 3))
+        rad = rng.uniform(0.2, 0.9, (t, 1)) * rng.uniform(0.7, 1.0, (t, 3))
+        v = np.stack([cx, cy], -1)[:, None, :] + rad[..., None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+        z = rng.uniform(0.1, 0.9, (t, 1)) + rng.uniform(-0.01, 0.01, (t, 3))
+        for k in np.nonzero(live)[0][5:-1:10]:  # equal-z twins
+            v[k + 1], z[k + 1] = v[k], z[k]
+            live[k + 1] = True
+        v[~live] = rng.uniform(-1e3, 1e3, (int((~live).sum()), 3, 2))  # never read
+        trit[b, 0:6] = v.reshape(t, 6).T
+        trit[b, 6:9] = z.T
+        box = np.stack([v[..., 0].min(1), v[..., 0].max(1), v[..., 1].min(1), v[..., 1].max(1)])
+        trit[b, 10:14] = np.where(live, box, np.array([1e30, -1e30, 1e30, -1e30])[:, None])
+        # exclude ids: for a third of the pixels, a live row whose bbox holds the centre
+        gy, gx = np.nonzero(rng.random((height, width)) < 0.33)
+        px, py = gx + 0.5, gy + 0.5
+        holds = ((box[0] <= px[:, None]) & (box[1] >= px[:, None]) & (box[2] <= py[:, None])
+                 & (box[3] >= py[:, None]) & live)
+        for k in np.nonzero(holds.any(1))[0]:
+            exclude[b, gy[k], gx[k]] = rng.choice(np.nonzero(holds[k])[0])
     return trit, exclude
