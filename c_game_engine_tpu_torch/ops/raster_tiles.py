@@ -1,11 +1,12 @@
-"""Kernel K4: tile rasterization with in-kernel attribute interpolation
-(counterpart of c_game_engine_tpu/ops/raster_tiles.py::raster_tiles_pallas,
-with its binning pass `bin_triangles`).
+"""Kernel K4: tile rasterization with in-kernel binning and attribute
+interpolation (counterpart of
+c_game_engine_tpu/ops/raster_tiles.py::raster_tiles_pallas, with its
+binning pass `bin_triangles`).
 
 The framebuffer is cut into 8 x 128 tiles. `bin_triangles` hands every tile
 the indices of the triangles whose screen bbox overlaps it, in index order,
 at most L = min(T, L_CAP) of them (a tile with more drops the highest
-indices). For each pixel the kernel walks its tile's list in order: edge
+indices). For each pixel the walk goes over its tile's list in order: edge
 functions, affine z, and a strictly-closer test
 `inside & (z > 0) & (z < 1) & (z < zbuf) & (id != exclude)`; where it holds,
 the triangle's perspective-correct uv, lightmap uv, rgba, fragment depth
@@ -20,9 +21,16 @@ Outputs, each [B, H, W]: zbuf f32 (+inf none), winner i32 (-1 none),
 frag_depth, uv_u, uv_v, lm_u, lm_v, col_r, col_g, col_b, col_a (f32, 0
 none), enc i32 (0 none).
 
-`raster_tiles` launches the CUDA kernel (csrc/raster_tiles.cu) for CUDA
-tensors and runs `raster_tiles_plain`, the same computation in plain
-PyTorch, for CPU tensors. `launches` counts kernel launches.
+`raster_tiles_binned` is the render path's entry point: for CUDA tensors
+one launch of the CUDA kernel (csrc/raster_tiles.cu), which bins the rows
+itself; for CPU tensors `bin_triangles` and the plain walk `_plain`, the
+same computation in plain PyTorch (`raster_tiles_binned_plain` on any
+device). `tile_on` gates tiles off, as K5's does: a gated tile lists
+nothing and keeps the initial values. `raster_tiles` and
+`raster_tiles_plain` take lists built by `bin_triangles` (or any lists)
+and run the plain walk; on the card the lists exist only inside the
+kernel, so `raster_tiles` takes CPU tensors only. `launches` counts kernel
+launches, one per pass.
 """
 
 from __future__ import annotations
@@ -72,45 +80,115 @@ def bin_triangles(sx, sy, tri_ok, height, width):
     return idx[..., :L].contiguous(), cnt
 
 
-def _check(tri48, idx, cnt, exclude, height, width):
-    b, t = tri48.shape[:2]
-    nty, ntx = height // TILE_H, width // TILE_W
+def _check_table(tri48, height, width):
     if height % TILE_H or width % TILE_W:
         raise NotImplementedError(f"K4 needs whole {TILE_H}x{TILE_W} tiles, got {height}x{width}")
-    if tri48.ndim != 3 or tri48.shape[2] != N_COLS or t == 0:
+    if tri48.ndim != 3 or tri48.shape[2] != N_COLS or tri48.shape[1] == 0:
         raise ValueError(f"tri48 must be [B, T, {N_COLS}] with T > 0, got {tuple(tri48.shape)}")
-    if idx.ndim != 4 or idx.shape[:3] != (b, nty, ntx) or not 0 < idx.shape[3] <= t:
-        raise ValueError(f"idx must be [B, {nty}, {ntx}, L], got {tuple(idx.shape)}")
-    if cnt.shape != (b, nty, ntx):
-        raise ValueError(f"cnt must be [B, {nty}, {ntx}], got {tuple(cnt.shape)}")
-    if exclude.shape != (b, height, width):
-        raise ValueError(f"exclude must be [B, {height}, {width}], got {tuple(exclude.shape)}")
-    for x, dt in ((tri48, torch.float32), (idx, torch.int32), (cnt, torch.int32), (exclude, torch.int32)):
+    if tri48.dtype != torch.float32:
+        raise TypeError(f"tri48: expected torch.float32, got {tri48.dtype}")
+
+
+def _check_inputs(tri48, named):
+    """Each (name, tensor or None, shape, dtype) of `named` against tri48."""
+    for name, x, shape, dt in named:
+        if x is None:
+            continue
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(x.shape)}")
         if x.dtype != dt:
-            raise TypeError(f"expected {dt}, got {x.dtype}")
+            raise TypeError(f"{name}: expected {dt}, got {x.dtype}")
         if x.device != tri48.device:
             raise ValueError("all inputs must be on one device")
 
 
-def raster_tiles(tri48, idx, cnt, height, width, exclude=None):
-    """tri48 [B, T, 48], idx [B, NTy, NTx, L], cnt [B, NTy, NTx] from
-    bin_triangles, exclude [B, H, W] i32 (-1 none) -> the 12 planes."""
-    if exclude is None:
-        exclude = torch.full((tri48.shape[0], height, width), -1, dtype=torch.int32, device=tri48.device)
-    _check(tri48, idx, cnt, exclude, height, width)
+def _check_binned(tri48, tri_ok, exclude, tile_on, height, width):
+    _check_table(tri48, height, width)
+    b, t = tri48.shape[:2]
+    nty, ntx = height // TILE_H, width // TILE_W
+    _check_inputs(tri48, (("tri_ok", tri_ok, (b, t), torch.bool),
+                          ("exclude", exclude, (b, height, width), torch.int32),
+                          ("tile_on", tile_on, (b, nty * ntx), torch.int32)))
+
+
+def raster_tiles_binned(tri48, tri_ok, height, width, exclude=None, tile_on=None):
+    """tri48 [B, T, 48], tri_ok [B, T] bool, exclude [B, H, W] i32 (-1
+    none; None: no image), tile_on [B, NTy * NTx] i32 (0 gates a tile off;
+    None: all on) -> the 12 planes. CUDA tensors: one kernel launch, the
+    binning included; CPU tensors: `bin_triangles` and the plain walk."""
+    _check_binned(tri48, tri_ok, exclude, tile_on, height, width)
     if tri48.device.type == "cuda":
-        return _launch(tri48, idx, cnt, exclude, height, width)
+        return _launch(tri48, tri_ok, exclude, tile_on, height, width)
     if tri48.device.type == "cpu":
-        return _plain(tri48, idx, cnt, exclude, height, width)
+        return _binned_plain(tri48, tri_ok, exclude, tile_on, height, width)
     raise ValueError(f"no raster kernel for device {tri48.device}")
 
 
-def raster_tiles_plain(tri48, idx, cnt, height, width, exclude=None):
+def raster_tiles_binned_plain(tri48, tri_ok, height, width, exclude=None, tile_on=None):
     """The same computation as the CUDA kernel in plain PyTorch, on any
-    device."""
-    if exclude is None:
-        exclude = torch.full((tri48.shape[0], height, width), -1, dtype=torch.int32, device=tri48.device)
-    _check(tri48, idx, cnt, exclude, height, width)
+    device: `bin_triangles`, the gate applied to the counts, the walk."""
+    _check_binned(tri48, tri_ok, exclude, tile_on, height, width)
+    return _binned_plain(tri48, tri_ok, exclude, tile_on, height, width)
+
+
+def _gated_lists(tri48, tri_ok, tile_on, height, width):
+    """bin_triangles' lists of the table's screen coordinates, with the
+    counts of the gated-off tiles zeroed."""
+    idx, cnt = bin_triangles(tri48[..., 0:6:2], tri48[..., 1:6:2], tri_ok, height, width)
+    if tile_on is not None:
+        cnt = torch.where(tile_on.reshape(cnt.shape) != 0, cnt, 0)
+    return idx, cnt
+
+
+def _binned_plain(tri48, tri_ok, exclude, tile_on, height, width):
+    idx, cnt = _gated_lists(tri48, tri_ok, tile_on, height, width)
+    return _plain(tri48, idx, cnt, exclude, height, width)
+
+
+def inside_pairs(tri48, tri_ok, height, width, tile_on=None):
+    """How many (pixel, row) pairs of the walk have the pixel inside the
+    row's triangle: the pairs on which the kernel computes the denominator,
+    z and the division (chip_smoke.py's bound). The edge functions of
+    `_plain`; reads the lists' lengths on the host."""
+    idx, cnt = _gated_lists(tri48, tri_ok, tile_on, height, width)
+    gx, gy = _centres(height // TILE_H, width // TILE_W, tri48.device)
+    bi = torch.arange(tri48.shape[0], device=tri48.device)[:, None, None]
+    n = torch.zeros((), dtype=torch.int64, device=tri48.device)
+    for j in range(int(cnt.max()) if cnt.numel() else 0):
+        row = tri48[bi, idx[..., j].long()]  # [B, NTy, NTx, 48]
+        ax, ay, bx, by, cx, cy = (row[..., k, None, None] for k in range(6))
+        e0 = (bx - ax) * (gy - ay) - (by - ay) * (gx - ax)
+        e1 = (cx - bx) * (gy - by) - (cy - by) * (gx - bx)
+        e2 = (ax - cx) * (gy - cy) - (ay - cy) * (gx - cx)
+        inside = ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)) | ((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
+        n += (inside & (cnt > j)[..., None, None]).sum()
+    return int(n)
+
+
+def _check_lists(tri48, idx, cnt, exclude, height, width):
+    _check_table(tri48, height, width)
+    b, t = tri48.shape[:2]
+    nty, ntx = height // TILE_H, width // TILE_W
+    if idx.ndim != 4 or idx.shape[:3] != (b, nty, ntx) or not 0 < idx.shape[3] <= t:
+        raise ValueError(f"idx must be [B, {nty}, {ntx}, L], got {tuple(idx.shape)}")
+    _check_inputs(tri48, (("idx", idx, tuple(idx.shape), torch.int32), ("cnt", cnt, (b, nty, ntx), torch.int32),
+                          ("exclude", exclude, (b, height, width), torch.int32)))
+
+
+def raster_tiles(tri48, idx, cnt, height, width, exclude=None):
+    """tri48 [B, T, 48], idx [B, NTy, NTx, L], cnt [B, NTy, NTx] from
+    bin_triangles, exclude [B, H, W] i32 (-1 none) -> the 12 planes, by
+    the plain walk. CPU tensors only: the CUDA kernel builds its lists
+    itself (`raster_tiles_binned`)."""
+    _check_lists(tri48, idx, cnt, exclude, height, width)
+    if tri48.device.type != "cpu":
+        raise ValueError(f"raster_tiles takes CPU tensors; on {tri48.device} call raster_tiles_binned")
+    return _plain(tri48, idx, cnt, exclude, height, width)
+
+
+def raster_tiles_plain(tri48, idx, cnt, height, width, exclude=None):
+    """The walk over given lists in plain PyTorch, on any device."""
+    _check_lists(tri48, idx, cnt, exclude, height, width)
     return _plain(tri48, idx, cnt, exclude, height, width)
 
 
@@ -124,44 +202,52 @@ def _kernel():
     from c_game_engine_tpu_torch.ops.build import KernelLibrary
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    return KernelLibrary("raster_tiles").fn("raster_tiles_launch", [p, p, p, p, p, p, i, i, i, i, i, p])
+    return KernelLibrary("raster_tiles").fn("raster_tiles_launch", [p, p, p, p, p, p, i, i, i, i, p])
 
 
-def _launch(tri48, idx, cnt, exclude, height, width):
+def _launch(tri48, tri_ok, exclude, tile_on, height, width):
     global launches
     from c_game_engine_tpu_torch.ops.build import check
 
-    if not all(x.is_contiguous() for x in (tri48, idx, cnt, exclude)):
+    if not all(x.is_contiguous() for x in (tri48, tri_ok, exclude, tile_on) if x is not None):
         raise ValueError("K4 takes contiguous tensors")
+    if tri48.data_ptr() % 16:
+        raise ValueError("tri48 must start on a 16-byte boundary (the kernel reads it in 16-byte loads)")
     b, t = tri48.shape[:2]
     out_f = torch.empty((10, b, height, width), dtype=torch.float32, device=tri48.device)
     out_i = torch.empty((2, b, height, width), dtype=torch.int32, device=tri48.device)
     stream = torch.cuda.current_stream(tri48.device).cuda_stream
+    ptr = lambda x: None if x is None else x.data_ptr()
     err = _kernel()(
-        tri48.data_ptr(), idx.data_ptr(), cnt.data_ptr(), exclude.data_ptr(),
-        out_f.data_ptr(), out_i.data_ptr(), b, t, idx.shape[3],
-        height // TILE_H, width // TILE_W, stream,
+        tri48.data_ptr(), tri_ok.data_ptr(), ptr(exclude), ptr(tile_on), out_f.data_ptr(), out_i.data_ptr(),
+        b, t, height // TILE_H, width // TILE_W, stream,
     )
     check(err, "raster_tiles")
     launches += 1
     return _planes(out_f, out_i)
 
 
-def _plain(tri48, idx, cnt, exclude, height, width):
-    """Every tile's pixels at once, a serial loop over list position. Each
-    expression is the kernel's, in its order."""
-    b = tri48.shape[0]
-    nty, ntx = height // TILE_H, width // TILE_W
-    dev = tri48.device
+def _centres(nty, ntx, dev):
+    """The pixel centres (gx, gy), each [1, NTy, NTx, TILE_H, TILE_W]."""
     f32 = torch.float32
-    # pixel centres [1, NTy, NTx, TILE_H, TILE_W]
     gx = ((torch.arange(ntx, device=dev) * TILE_W).to(f32)[None, :, None, None]
           + torch.arange(TILE_W, device=dev).to(f32)[None, None, None, :]) + 0.5
     gy = ((torch.arange(nty, device=dev) * TILE_H).to(f32)[:, None, None, None]
           + torch.arange(TILE_H, device=dev).to(f32)[None, None, :, None]) + 0.5
-    gx, gy = gx.expand(nty, ntx, TILE_H, TILE_W)[None], gy.expand(nty, ntx, TILE_H, TILE_W)[None]
+    return gx.expand(nty, ntx, TILE_H, TILE_W)[None], gy.expand(nty, ntx, TILE_H, TILE_W)[None]
+
+
+def _plain(tri48, idx, cnt, exclude, height, width):
+    """Every tile's pixels at once, a serial loop over list position (no
+    exclude image: nothing excluded). Each expression is the kernel's, in
+    its order."""
+    b = tri48.shape[0]
+    nty, ntx = height // TILE_H, width // TILE_W
+    dev = tri48.device
+    f32 = torch.float32
+    gx, gy = _centres(nty, ntx, dev)
     tiled = lambda a: a.reshape(b, nty, TILE_H, ntx, TILE_W).permute(0, 1, 3, 2, 4)
-    excl = tiled(exclude)
+    excl = torch.tensor(-1, dtype=torch.int32, device=dev) if exclude is None else tiled(exclude)
     shape = (b, nty, ntx, TILE_H, TILE_W)
     zbuf = torch.full(shape, torch.inf, dtype=f32, device=dev)
     tid = torch.full(shape, -1.0, dtype=f32, device=dev)

@@ -17,9 +17,9 @@ order. Under backend None or "auto" the route follows the bundle's
 live-triangle bound, as the JAX package's does on the TPU ("pallas" and
 "pallas_big" force a route):
   * "tiles" (at most PALLAS_MAX_BOUND = 65,536): the T_CULL compaction,
-    `_clip_near` (1 triangle -> up to 2), the tri48 table, tile binning and
-    kernel K4 (ops/raster_tiles.py), which keeps each pixel's z winner and
-    its interpolated attributes;
+    `_clip_near` (1 triangle -> up to 2), the tri48 table and kernel K4
+    (ops/raster_tiles.py), which bins the rows into tiles, keeps each
+    pixel's z winner and interpolates its attributes;
   * "big" (above): no compaction, `_clip_near_compact` (the near-plane
     crossing rows, at most CLIP_CAP, clipped and appended), the
     fields-major table with per-row screen bboxes and their chunk and
@@ -560,12 +560,12 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
             enc.float()[..., None],
             torch.zeros((b, t_act, K4.N_COLS - 38), device=dev),
         ], -1).contiguous()
-        idx, cnt = K4.bin_triangles(sx, sy, tri_ok, height, width)
         vattr36 = None
 
         def z_pass(exclude=None, gate=None):
-            return K4.raster_tiles(tri48, idx, cnt if gate is None else torch.where(gate, cnt, 0).contiguous(),
-                                   height, width, exclude=exclude)
+            tile_on = None if gate is None else gate.reshape(b, -1).to(torch.int32)
+            return K4.raster_tiles_binned(tri48, tri_ok.contiguous(), height, width, exclude=exclude,
+                                          tile_on=tile_on)
     else:
         trit, cbox, scb = _big_table(sx, sy, sz, tri_ok)
         # the attributes of the winners, gathered afterwards: [B, T, 36]

@@ -3,13 +3,12 @@ where no CUDA device is present). Run them on a GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Each kernel is held against its plain PyTorch version on the same device:
-K4's float planes within 1e-5 (the kernels are built with --fmad=false, so
-they round as the plain version does), K4's winner ids and enc words
-exactly, and K1's positions, velocities and `grounded`, K2's t, K3's
-contacts with their tie order and K5's planes bit for bit, on random
-inputs and on tables of exact ties and edges (K2's edge table, K5's
-sub-pixel table); a short rollout on
+Each kernel is held against its plain PyTorch version on the same device,
+bit for bit (the kernels are built with --fmad=false, so they round as the
+plain versions do): K1's positions, velocities and `grounded`, K2's t,
+K3's contacts with their tie order, K4's 12 planes and K5's, on random
+inputs and on tables of exact ties and edges (K2's edge table, K4's
+binning edge table, K5's sub-pixel table); a short rollout on
 the card is held to the CPU plain path with the slice bars of
 tests/test_torch_slice.py, and a render to the CPU's with the frame bar.
 The helpers are imported as top-level modules of tests/ (pytest puts the
@@ -150,28 +149,71 @@ def test_rollout_on_card_matches_cpu(cuda, arena):
 
 
 def test_raster_tiles_kernel_matches_plain(cuda):
-    """K4 on the card against its plain version on random tables (equal-z
-    twins, degenerate and off-frame rows, an exclude image, a zeroed tile
-    count): winner ids and enc words equal, the float planes within 1e-5."""
+    """K4 (binning included) on the card against its plain version on
+    random tables (equal-z twins, degenerate and off-frame rows, an
+    exclude image, a gated-off tile): all 12 planes bit for bit."""
     from c_game_engine_tpu_torch.ops import raster_tiles as k4
     from torch_inputs import k4_inputs
 
     h, w = 64, 256
-    tri48, sx, sy, ok, excl = (torch.as_tensor(a, device=cuda)
-                               for a in k4_inputs(seed=9, batch=4, height=h, width=w, t=400))
-    idx, cnt = k4.bin_triangles(sx, sy, ok, h, w)
-    cnt[1, 2, 1] = 0
+    tri48, _, _, ok, excl = (torch.as_tensor(a, device=cuda)
+                             for a in k4_inputs(seed=9, batch=4, height=h, width=w, t=400))
+    tile_on = torch.ones((4, (h // 8) * (w // 128)), dtype=torch.int32, device=cuda)
+    tile_on[1, 5] = 0
     before = k4.launches
-    got = k4.raster_tiles(tri48, idx, cnt, h, w, exclude=excl)
+    got = k4.raster_tiles_binned(tri48, ok, h, w, exclude=excl, tile_on=tile_on)
     assert k4.launches == before + 1
-    want = k4.raster_tiles_plain(tri48, idx, cnt, h, w, exclude=excl)
+    want = k4.raster_tiles_binned_plain(tri48, ok, h, w, exclude=excl, tile_on=tile_on)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1]) and torch.equal(got[11], want[11])
-    for g, p in zip(got, want):
-        if g.is_floating_point():
-            assert torch.equal(torch.isinf(g), torch.isinf(p))
-            fin = torch.isfinite(p)
-            assert float(torch.where(fin, g - p, 0.0).abs().max()) <= 1e-5
+    for k, (g, p) in enumerate(zip(got, want)):
+        assert torch.equal(g, p), f"plane {k}"
+    assert (got[1][1, 16:24, 128:] == -1).all() and float((got[1] >= 0).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("kind", ["crowded", "small"])
+@pytest.mark.parametrize("exclude", [True, False])
+def test_raster_tiles_edge_table_kernel_matches_plain(cuda, kind, exclude):
+    """K4 on the card against its plain version on the binning edge table
+    of tests/torch_inputs.py::k4_bin_edge_inputs (tri_ok false, NaN and
+    infinite coordinates, boxes on and one float off the tile bounds, a
+    tile of more than 512 rows, T < 512, a gated-off tile), with and
+    without an exclude image: all 12 planes bit for bit."""
+    from c_game_engine_tpu_torch.ops import raster_tiles as k4
+    from torch_inputs import k4_bin_edge_inputs
+
+    tri48, ok, excl, tile_on = (torch.as_tensor(a, device=cuda) for a in k4_bin_edge_inputs(kind))
+    excl = excl if exclude else None
+    before = k4.launches
+    got = k4.raster_tiles_binned(tri48, ok, 16, 256, exclude=excl, tile_on=tile_on)
+    assert k4.launches == before + 1
+    want = k4.raster_tiles_binned_plain(tri48, ok, 16, 256, exclude=excl, tile_on=tile_on)
+    torch.cuda.synchronize()
+    for k, (g, p) in enumerate(zip(got, want)):
+        assert torch.equal(g, p), f"plane {k}"
+
+
+def test_raster_tiles_wrapper_raises(cuda):
+    """The K4 wrapper raises for a CPU tensor among CUDA ones, a table
+    that does not start on a 16-byte boundary and a non-contiguous one, and
+    the list-taking `raster_tiles` for CUDA tensors; nothing launches."""
+    from c_game_engine_tpu_torch.ops import raster_tiles as k4
+    from torch_inputs import k4_bin_edge_inputs
+
+    tri48, ok, excl, tile_on = (torch.as_tensor(a, device=cuda) for a in k4_bin_edge_inputs("small"))
+    before = k4.launches
+    with pytest.raises(ValueError, match="one device"):
+        k4.raster_tiles_binned(tri48, ok.cpu(), 16, 256)
+    shifted = torch.zeros(tri48.numel() + 1, device=cuda)
+    shifted[1:] = tri48.reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        k4.raster_tiles_binned(shifted[1:].view(tri48.shape), ok, 16, 256)
+    wide = torch.zeros((*tri48.shape[:2], 96), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.raster_tiles_binned(wide[..., ::2], ok, 16, 256)
+    idx, cnt = k4.bin_triangles(tri48[..., 0:6:2], tri48[..., 1:6:2], ok, 16, 256)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        k4.raster_tiles(tri48, idx, cnt, 16, 256)
+    assert k4.launches == before
 
 
 def test_render_on_card_matches_cpu(cuda):

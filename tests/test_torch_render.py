@@ -292,8 +292,8 @@ def test_render_batch_matches_jax(lit, monkeypatch):
     monkeypatch.setattr(JR, "_pass1_xla", jz_record)
     monkeypatch.setattr(JR, "_attrs_from_winner", jattr_record)
     want = np.asarray(jax.jit(lambda s: JR.render_batch(jb, jc, s, H, W, backend="xla"))(js))
-    pk, kernel = [], K4.raster_tiles
-    monkeypatch.setattr(K4, "raster_tiles", lambda *a, **k: pk.append((a, k, kernel(*a, **k))) or pk[-1][2])
+    pk, kernel = [], K4.raster_tiles_binned
+    monkeypatch.setattr(K4, "raster_tiles_binned", lambda *a, **k: pk.append((a, k, kernel(*a, **k))) or pk[-1][2])
     got = render_batch(rb, cm, state_from_numpy(jax.tree.map(np.asarray, js), cm), H, W).numpy()
     assert got.shape == want.shape == (2, H, W, 3)
     assert len(pk) == 2 and len(jz) == 4 and len(jattr) == 2
@@ -414,8 +414,8 @@ def test_far_geometry_renders_in_front_of_the_sky(lit, monkeypatch):
     far = dataclasses.replace(
         rb, map_pos=pos, map_uv=torch.zeros(2, 3, 2), map_lmuv=torch.zeros(2, 3, 2),
         map_tex=rb.map_tex[:2].clone(), map_shaded=torch.ones(2, dtype=torch.bool), live_tri_bound=64)
-    seen, kernel = [], K4.raster_tiles
-    monkeypatch.setattr(K4, "raster_tiles", lambda *a, **k: seen.append(kernel(*a, **k)) or seen[-1])
+    seen, kernel = [], K4.raster_tiles_binned
+    monkeypatch.setattr(K4, "raster_tiles_binned", lambda *a, **k: seen.append(kernel(*a, **k)) or seen[-1])
     frame = render(far, cm, st, H, W)
     zb, win, enc = seen[0][0][0], seen[0][1][0], seen[0][11][0]
     c = (H // 2, W // 2)

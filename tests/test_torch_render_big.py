@@ -526,9 +526,9 @@ def test_big_route_matches_tile_route(lit):
     cm, rb = lit
     st = reset_batch(cm, 4)
     st = st.replace(player=st.player.replace(yaw=st.player.yaw + torch.arange(4) * (np.pi / 2)))
-    k4, kernel = [], K4.raster_tiles
+    k4, kernel = [], K4.raster_tiles_binned
     with pytest.MonkeyPatch.context() as m:
-        m.setattr(K4, "raster_tiles", lambda *a, **k: k4.append((a, k, kernel(*a, **k))) or k4[-1][2])
+        m.setattr(K4, "raster_tiles_binned", lambda *a, **k: k4.append((a, k, kernel(*a, **k))) or k4[-1][2])
         tiles = R.render_batch(rb, cm, st, H, W).numpy()
     big, calls, _, t_soup = _port_frame(dataclasses.replace(rb, live_tri_bound=65537), cm, st)
     txy = k4[0][0][0][..., :6].numpy().reshape(4, -1, 3, 2)

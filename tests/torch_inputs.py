@@ -1,6 +1,7 @@
 """Inputs of the port's kernel tests, made on the host with numpy from a
 seed: shared by the CPU parity tests (tests/test_torch_kernels.py,
-tests/test_torch_bodies.py, tests/test_torch_render.py) and the card tests
+tests/test_torch_bodies.py, tests/test_torch_render.py,
+tests/test_torch_raster_tiles.py) and the card tests
 (tests/test_torch_cuda.py),
 so this module imports numpy only: a GPU host need not have JAX."""
 
@@ -304,6 +305,116 @@ def k4_inputs(seed, batch=2, height=32, width=256, t=120):
     exclude = rng.integers(0, t, (batch, height, width)).astype(np.int32)
     exclude[rng.random((batch, height, width)) > 0.33] = -1
     return tri48, sx.copy(), sy.copy(), tri_ok, exclude
+
+
+def k4_bin_edge_inputs(kind, seed=11, batch=None):
+    """The binning edge table of K4, at 16 x 256 (2 x 2 tiles of 8 x 128):
+    (tri48 [B, T, 48] f32, tri_ok [B, T] bool, exclude [B, 16, 256] i32,
+    tile_on [B, 4] i32). kind "crowded" has T = 640 and puts 560 small
+    triangles inside tile (0, 0), so that its list overflows L = 512 and
+    drops the highest ids (row 22 covers that tile at z 0.5, the crowd lies
+    behind it but for its last 80 rows, which lie in front of every other
+    row, so the frame shows where the list stops); kind "small" has T = 64 < 512, so L = T.
+
+    Rows 0-27 of every env are the edge rows, big triangles at z near 0.1
+    (each would win its pixels if listed; `EDGE_ROWS` names them):
+    tri_ok false (0, 1); a NaN x (2) and a NaN y (3), which amin/amax make
+    NaN bboxes that overlap nothing; NaN z (4, listed, never closer); x =
+    -inf (5) and y = +inf (6) at one vertex (listed, z NaN: never
+    closer); x = +inf at all three vertices (7, overlaps nothing); boxes
+    that touch a tile bound exactly: xmin = 128 (8) and xmax = 128 (9),
+    ymin = 8 (10) and ymax = 8 (11), xmin = 256 (12), xmax = 0 (13),
+    ymin = 16 (14), ymax = 0 (15), each listed in the tiles on both sides
+    of the bound it touches; boxes one float short of a bound: xmin just
+    above 128 (16) and xmax just below 128 (17), ymin just above 8 (18)
+    and ymax just below 8 (19), listed on one side only. Rows 20-27 are
+    well-shaped triangles of the frame at z 0.3-0.6, with an equal-z twin
+    (row 21 copies row 20; row 22 covers tile (0, 0) at z 0.5). The other rows are random well-shaped
+    triangles of 3-20 px at z from -0.1 to 1.1, some partly off the
+    frame, with degenerate rows (two coincident vertices) and equal-z
+    twins. A third of the pixels exclude a random id; the last env gates
+    tile (1, 0) off, and "crowded" tiles (0, 1) and (1, 1) too. One env
+    for "crowded", two for "small", unless `batch` says otherwise."""
+    rng = np.random.default_rng(seed)
+    h, w = 16, 256
+    t, n_crowd = {"crowded": (640, 560), "small": (64, 0)}[kind]
+    batch = batch or (1 if kind == "crowded" else 2)
+    tri48 = np.zeros((batch, t, 48), np.float32)
+    tri_ok = np.ones((batch, t), bool)
+    below, above = np.nextafter(np.float32(128), np.float32(0)), np.nextafter(np.float32(128), np.float32(256))
+    below8, above8 = np.nextafter(np.float32(8), np.float32(0)), np.nextafter(np.float32(8), np.float32(16))
+    nan, inf = np.nan, np.inf
+    edge = [  # (x0, y0, x1, y1, x2, y2) of rows 0-19
+        (-20, -10, 280, -10, 130, 40), (10, 2, 250, 3, 120, 15),
+        (-20, -10, nan, -10, 130, 40), (-20, -10, 280, -10, 130, nan),
+        (-20, -10, 280, -10, 130, 40), (-inf, 1, 200, 2, 100, 14), (5, 1, 200, 3, 100, inf),
+        (inf, 1, inf, 5, inf, 9),
+        (128, 2, 140, 6, 135, 12), (110, 2, 128, 6, 120, 12), (100, 8, 118, 12, 110, 14),
+        (20, 1, 40, 8, 30, 5), (256, 3, 270, 6, 262, 12), (-12, 3, 0, 6, -6, 12),
+        (30, 16, 50, 20, 40, 22), (60, -6, 80, 0, 70, -3),
+        (above, 2, 140, 6, 135, 12), (110, 2, below, 6, 120, 12), (100, above8, 118, 12, 110, 14),
+        (20, 1, 40, below8, 30, 5),
+    ]
+    for b in range(batch):
+        n_rand = t - 28 - n_crowd
+        c = np.stack([rng.uniform(-20, w + 20, n_rand), rng.uniform(-8, h + 8, n_rand)], -1)
+        ang = rng.uniform(0, 2 * np.pi, (n_rand, 1)) + np.arange(3) * (2 * np.pi / 3) + rng.uniform(-0.5, 0.5, (n_rand, 3))
+        rad = rng.uniform(3, 20, (n_rand, 1)) * rng.uniform(0.7, 1.0, (n_rand, 3))
+        v_rand = c[:, None, :] + rad[..., None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+        v_rand[:4, 2] = v_rand[:4, 0]  # degenerate: two coincident vertices
+        # the crowd: circumradius 1.5-2.5 px, wholly inside tile (0, 0)
+        c = np.stack([rng.uniform(4, 124, n_crowd), rng.uniform(3, 5, n_crowd)], -1)
+        ang = rng.uniform(0, 2 * np.pi, (n_crowd, 1)) + np.arange(3) * (2 * np.pi / 3) + rng.uniform(-0.4, 0.4, (n_crowd, 3))
+        v_crowd = c[:, None, :] + rng.uniform(1.5, 2.5, (n_crowd, 1, 1)) * np.stack([np.cos(ang), np.sin(ang)], -1)
+        # rows 20-27: well-shaped triangles of the frame, row 21 row 20's twin
+        c = np.stack([rng.uniform(20, w - 20, 8), rng.uniform(2, h - 2, 8)], -1)
+        ang = rng.uniform(0, 2 * np.pi, (8, 1)) + np.arange(3) * (2 * np.pi / 3) + rng.uniform(-0.5, 0.5, (8, 3))
+        v_mid = c[:, None, :] + rng.uniform(6, 30, (8, 1, 1)) * np.stack([np.cos(ang), np.sin(ang)], -1)
+        v_mid[1] = v_mid[0]
+        v_mid[2] = [(-10, -20), (300, -4), (-10, 20)]  # row 22 covers tile (0, 0)
+        v = np.concatenate([np.array(edge, np.float64).reshape(20, 3, 2), v_mid, v_crowd, v_rand])
+        z = np.concatenate([
+            0.1 + rng.uniform(-0.02, 0.02, (20, 3)),
+            rng.uniform(0.3, 0.6, (8, 1)) + rng.uniform(-0.05, 0.05, (8, 3)),
+            rng.uniform(0.05, 0.95, (n_crowd, 1)) + rng.uniform(-0.02, 0.02, (n_crowd, 3)),
+            rng.uniform(-0.1, 1.1, (n_rand, 1)) + rng.uniform(-0.05, 0.05, (n_rand, 3)),
+        ])
+        z[21], z[4, 1], z[22] = z[20], np.nan, 0.5
+        # the crowd behind row 22 but for its last 80 rows, which lie in
+        # front of every other row, so that the frame shows where the list
+        # stops
+        z[28:28 + n_crowd] = rng.uniform(0.6, 0.95, (n_crowd, 1)) + rng.uniform(-0.02, 0.02, (n_crowd, 3))
+        z[28 + n_crowd - 80:28 + n_crowd] *= 0.05
+        for k in range(28 + n_crowd + 10, t - 1, 12):  # equal-z twins among the random rows
+            v[k + 1], z[k + 1] = v[k], z[k]
+        tri48[b, :, 0:6] = v.reshape(t, 6)
+        tri48[b, :, 6:9] = z
+        tri48[b, :, 9] = np.arange(t)
+        tri48[b, :, 10:13] = rng.uniform(0.2, 2.0, (t, 3))
+        tri48[b, :, 13:37] = rng.uniform(-1.5, 2.5, (t, 24))
+        tri48[b, :, 37] = rng.integers(0, 1 << 23, t)
+        tri_ok[b, :2] = False
+    exclude = rng.integers(0, t, (batch, h, w)).astype(np.int32)
+    exclude[rng.random((batch, h, w)) > 0.33] = -1
+    tile_on = np.ones((batch, 4), np.int32)
+    tile_on[-1, 2] = 0
+    if kind == "crowded":  # the other tiles' walks are the small table's (the interpret mode is slow)
+        tile_on[:, 1::2] = 0
+    return tri48, tri_ok, exclude, tile_on
+
+
+# rows of k4_bin_edge_inputs and the tiles (ty, tx) each is listed in
+EDGE_ROWS = {
+    "not ok": ((0, ()), (1, ())),
+    "NaN coordinate": ((2, ()), (3, ())),
+    "NaN z": ((4, ((0, 0), (0, 1), (1, 0), (1, 1))),),
+    "infinite coordinate": ((5, ((0, 0), (0, 1), (1, 0), (1, 1))), (6, ((0, 0), (0, 1), (1, 0), (1, 1))),
+                            (7, ())),
+    "touching a bound": ((8, ((0, 0), (0, 1), (1, 0), (1, 1))), (9, ((0, 0), (0, 1), (1, 0), (1, 1))),
+                         (10, ((0, 0), (1, 0))), (11, ((0, 0), (1, 0))), (12, ((0, 1), (1, 1))),
+                         (13, ((0, 0), (1, 0))), (14, ((1, 0),)), (15, ((0, 0),))),
+    "one float short": ((16, ((0, 1), (1, 1))), (17, ((0, 0), (1, 0))), (18, ((1, 0),)), (19, ((0, 0),))),
+}
 
 
 def k5_inputs(seed, batch=1, height=8, width=128, t=4096, kind="random"):
