@@ -22,7 +22,7 @@ from c_game_engine_tpu_torch.actors.defs import (
 )
 from c_game_engine_tpu_torch.actors.signals import fire
 from c_game_engine_tpu_torch.assets.kvlist import ParamType
-from c_game_engine_tpu_torch.utils.mathx import quat_rotate
+from c_game_engine_tpu_torch.utils.mathx import const, quat_rotate
 
 
 def set_col(a, k, v):
@@ -34,7 +34,7 @@ def set_col(a, k, v):
 
 def door_forward(actors_quat):
     """Door travel direction: +Z rotated by the door's quat."""
-    z = torch.tensor([0.0, 0.0, 1.0], device=actors_quat.device).expand(actors_quat.shape[:-1] + (3,))
+    z = const((0.0, 0.0, 1.0), actors_quat.device).expand(actors_quat.shape[:-1] + (3,))
     return quat_rotate(actors_quat, z)
 
 

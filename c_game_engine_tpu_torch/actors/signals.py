@@ -9,6 +9,8 @@ than the round count carry into the next tick's queue).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from c_game_engine_tpu_torch.actors.defs import Output
@@ -18,8 +20,10 @@ from c_game_engine_tpu_torch.core.state import EVENT_CAPACITY, EventQueue, empty
 NUM_OUTPUTS = len(Output)
 
 
+@functools.cache
 def _output_ptype(device):
-    """Default param type carried by each output when fired."""
+    """Default param type carried by each output when fired (built once
+    per device)."""
     t = torch.zeros(NUM_OUTPUTS, dtype=torch.int32, device=device)
     t[int(Output.EXECUTION_RESULT)] = int(ParamType.BOOL)
     t[int(Output.COUNTER_CHANGED)] = int(ParamType.INTEGER)

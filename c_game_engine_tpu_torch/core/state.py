@@ -43,14 +43,19 @@ class Struct:
         return dataclasses.replace(self, **kw)
 
 
-def tree_map(fn, obj):
-    """Apply fn to every tensor leaf of a (nested) Struct; other fields
+def tree_map(fn, obj, *rest):
+    """Apply fn to every tensor leaf of a (nested) Struct, and to the
+    matching leaves of `rest` (Structs of the same type); other fields
     (CompiledMap.aux) pass through."""
     if isinstance(obj, torch.Tensor):
-        return fn(obj)
+        return fn(obj, *rest)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(
-            obj, **{f.name: tree_map(fn, getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+            obj,
+            **{
+                f.name: tree_map(fn, getattr(obj, f.name), *(getattr(r, f.name) for r in rest))
+                for f in dataclasses.fields(obj)
+            },
         )
     return obj
 
@@ -162,12 +167,19 @@ class CompiledMap(Struct):
         return self.cls.device
 
     @functools.cached_property
-    def laser_rows(self) -> np.ndarray:
-        """Actor rows of class LASER (host copy, read once per map: the JAX
-        tick reads np.asarray(cmap.cls) at trace time)."""
+    def laser_idx(self) -> torch.Tensor:
+        """[L] long actor rows of class LASER, on the map's device (found
+        once per map: the JAX tick reads np.asarray(cmap.cls) at trace
+        time)."""
         from c_game_engine_tpu_torch.actors.defs import ActorClass
 
-        return np.nonzero(self.cls.cpu().numpy() == int(ActorClass.LASER))[0]
+        return torch.nonzero(self.cls == int(ActorClass.LASER))[:, 0]
+
+    @functools.cached_property
+    def graphs(self) -> dict:
+        """Captured tick graphs of this map, by (batch, whether it collects)
+        (models/graph.py::tick_graph)."""
+        return {}
 
     @functools.cached_property
     def dyn_is_box(self) -> torch.Tensor:

@@ -3,9 +3,12 @@
 citations there).
 
 The JAX tick vmaps the per-env gameplay logic; here every stage is written
-with the batch axis explicit. Its two `lax.cond` gates (sound-op drain and
-channel advance) are Python `if t.any():`, each a host sync; so is the
-stick-to-floor gate in physics/batched.py.
+with the batch axis explicit. Its `lax.cond` gates (sound-op drain,
+channel advance, and in physics/ stick to floor, body and pair activity)
+go through core/gates.py. Every constant the tick needs is built once per
+(map, device) (`CompiledMap.laser_idx`, `mathx.const`), so a tick copies
+nothing from the host and can be captured as a CUDA graph
+(models/graph.py).
 
 delta is fixed at 1.0 tick (60 TPS); dt = 1/60 s.
 """
@@ -22,12 +25,13 @@ from c_game_engine_tpu_torch.actors.handlers import remove_actors as _remove_act
 from c_game_engine_tpu_torch.actors.handlers import set_col
 from c_game_engine_tpu_torch.assets.kvlist import ParamType
 from c_game_engine_tpu_torch.core.actions import Actions, Button
-from c_game_engine_tpu_torch.core.state import EVENT_CAPACITY, Crosshair, EnvState
+from c_game_engine_tpu_torch.core import gates
+from c_game_engine_tpu_torch.core.state import EVENT_CAPACITY, Crosshair, EnvState, tree_leaves, tree_map
 from c_game_engine_tpu_torch.physics import batched, bodies
 from c_game_engine_tpu_torch.physics import geometry_soa as gsoa
 from c_game_engine_tpu_torch.physics.character import CAPSULE_HALF_HEIGHT, CAPSULE_RADIUS
 from c_game_engine_tpu_torch.utils.mathx import (
-    clamp,
+    const,
     quat_from_axis_angle,
     quat_lerp,
     quat_normalize,
@@ -53,7 +57,7 @@ def _push_event(events, do_push, target, input_id, ptype=int(ParamType.NONE)):
     slot = torch.clamp(events.count, 0, EVENT_CAPACITY - 1)
     ok = do_push & (events.count < EVENT_CAPACITY)
     hot = ok[:, None] & (torch.arange(EVENT_CAPACITY, device=dev) == slot[:, None])  # [B, Q]
-    put = lambda buf, new: torch.where(hot, torch.as_tensor(new, device=dev)[..., None], buf)
+    put = lambda buf, new: torch.where(hot, new[..., None] if isinstance(new, torch.Tensor) else new, buf)
     return events.replace(
         target=put(events.target, target).int(),
         input=put(events.input, input_id).int(),
@@ -83,7 +87,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
     btn = actions.buttons  # [B, K]
     rows = torch.arange(n, device=dev)
     fired, fired_pi = signals.empty_fired(B, n, dev)
-    up = torch.tensor([0.0, 0.25, 0.0], device=dev)  # camera y offset
+    up = const((0.0, 0.25, 0.0), dev)  # camera y offset
 
     # ------------------------------------------------- toggles (UpdatePlayer)
     freecam = p.freecam ^ (btn[:, Button.FREECAM] & ~p.noclip)
@@ -92,7 +96,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
 
     # ---------------------------------------- camera look (UpdatePlayerCamera)
     yaw = p.yaw + torch.where(allow, actions.look[:, 0], 0.0)
-    pitch = clamp(p.pitch + torch.where(allow, actions.look[:, 1], 0.0), -math.pi / 2, math.pi / 2)
+    pitch = torch.clamp(p.pitch + torch.where(allow, actions.look[:, 1], 0.0), -math.pi / 2, math.pi / 2)
 
     # ------------------------------------------------- MovePlayer velocity
     move = actions.move * torch.where(allow, 1.0, 0.0)[:, None]
@@ -127,27 +131,26 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
     # ------------------- interaction raycast + laser beams, one K2 launch
     cam_pos = p.pos + up
     ray_dir = _forward_xyz(yaw, pitch)
-    laser_rows = cmap.laser_rows
-    L = len(laser_rows)
+    l_of = cmap.laser_idx
+    L = len(l_of)
     if L:
-        l_of = torch.as_tensor(laser_rows, dtype=torch.long, device=dev)
         lorig = state.actors.pos[:, l_of]  # [B, L, 3]
         lquat = state.actors.quat[:, l_of].reshape(B * L, 4)
-        ldirs = quat_rotate(lquat, torch.tensor([0.0, 0.0, -1.0], device=dev).expand(B * L, 3)).reshape(B, L, 3)
+        ldirs = quat_rotate(lquat, const((0.0, 0.0, -1.0), dev).expand(B * L, 3)).reshape(B, L, 3)
         # kind-major layout: all interact rays, then each laser's rays, so
         # each 128-ray block stays spatially tight
         origins = torch.cat([cam_pos, lorig.transpose(0, 1).reshape(L * B, 3)], 0)
         dirs = torch.cat([ray_dir, ldirs.transpose(0, 1).reshape(L * B, 3)], 0)
         by_kind = lambda head, rest: torch.cat([head.expand(B), rest.repeat_interleave(B)])
-        maxd = by_kind(torch.tensor([ACTOR_RAYCAST_MAX_DISTANCE], device=dev), torch.full((L,), 50.0, device=dev))
-        excl = by_kind(torch.tensor([-1], dtype=torch.int32, device=dev), cmap.siparams[l_of, 1].int())
+        maxd = by_kind(const((ACTOR_RAYCAST_MAX_DISTANCE,), dev), torch.full((L,), 50.0, device=dev))
+        excl = by_kind(const((-1,), dev, torch.int32), cmap.siparams[l_of, 1].int())
         rfl = by_kind(
-            torch.tensor([0], dtype=torch.int32, device=dev),
+            const((0,), dev, torch.int32),
             torch.full((L,), int(ActorFlags.CAN_BLOCK_LASERS), dtype=torch.int32, device=dev),
         )
         # triple lasers hit only the static world (Laser.c:64-72)
         trip = cmap.siparams[l_of, 0] == int(LaserHeight.TRIPLE)
-        stat = by_kind(torch.tensor([False], device=dev), trip)
+        stat = by_kind(const((False,), dev, torch.bool), trip)
         mhit, mfrac, mact = batched.cast_rays_batched(
             cmap, state.actors, origins, dirs, maxd, exclude=excl, require_flags=rfl,
             B_env=B, static_only=stat,
@@ -281,7 +284,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
     crosshair = torch.where(held_actor >= 0, Crosshair.INVISIBLE, crosshair)
 
     # ------------------------------------ character update (ExtendedUpdate)
-    old_xz = p.pos[:, [0, 2]]
+    old_xz = p.pos[:, 0::2]
     held_i32 = held_actor.int()
     new_pos, new_vel, on_ground = batched.update_character_batched(
         cmap,
@@ -320,7 +323,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
     can_drop_next = allow & ~touching
 
     # -------------------------------------------- view bob (MapPhysics.c:76-84)
-    dist = batched._norm(new_pos[:, [0, 2]] - old_xz)
+    dist = batched._norm(new_pos[:, 0::2] - old_xz)
     bob_h = remap(dist, 0.0, MOVE_SPEED / TPS, 0.0, 0.1)
     view_bob = 0.1 + torch.sin(torch.remainder(state.frame.float() / 7.0, 2.0 * math.pi)) * bob_h
 
@@ -376,11 +379,9 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
     )
 
     # --------------------------------- audio channel bookkeeping (one tick)
-    # both gates are batch-global host syncs (the JAX tick's lax.cond)
-    if bool((state.sound_ops != 0).any()):
-        state = _apply_sound_ops(cmap, state)
-    if bool((state.audio.snd >= 0).any()):
-        state = _advance_audio_tick(cmap, state)
+    # two batch-global gates (the JAX tick's lax.cond)
+    state = _audio_gate((state.sound_ops != 0).any(), lambda: _apply_sound_ops(cmap, state), state)
+    state = _audio_gate((state.audio.snd >= 0).any(), lambda: _advance_audio_tick(cmap, state), state)
 
     # ------------------------------------------- save clamps (MapUpdate)
     save = state.save.replace(
@@ -388,6 +389,23 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
         blue_coins=torch.clamp_max(state.save.blue_coins, 5),
     )
     return state.replace(save=save, tick=state.tick + 1, frame=state.frame + 1)
+
+
+def step(cmap, state: EnvState, actions: Actions) -> EnvState:
+    """Single-env tick: a batch-of-1 wrapper around step_batch (the
+    kernels pad the one lane to a 128-lane block)."""
+    out = step_batch(cmap, tree_map(lambda x: x[None], state), tree_map(lambda x: x[None], actions))
+    return tree_map(lambda x: x[0], out)
+
+
+def _audio_gate(pred, stage, state: EnvState) -> EnvState:
+    """stage() where pred ([] bool) holds, else `state`, through a gate of
+    core/gates.py; the gate carries the leaves the audio stages write (the
+    channel table, the actors' handles, the sound-op bits)."""
+    written = lambda st: [t for _, t in tree_leaves(st.audio)] + [st.actors.idata, st.sound_ops]
+    out = iter(gates.gate(gates.read(pred), lambda: written(stage()), lambda: written(state)))
+    audio = tree_map(lambda _: next(out), state.audio)
+    return state.replace(audio=audio, actors=state.actors.replace(idata=next(out)), sound_ops=next(out))
 
 
 def _apply_sound_ops(cmap, state: EnvState) -> EnvState:

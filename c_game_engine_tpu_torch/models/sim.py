@@ -1,13 +1,26 @@
 """Batched map simulation entry points (counterpart of
-c_game_engine_tpu/models/sim.py): B environments step in lockstep; the
-fixed-timestep loop is a Python loop over ticks.
+c_game_engine_tpu/models/sim.py): B environments step in lockstep.
+
+On a CUDA device `rollout` and `rollout_collect` replay one captured CUDA
+graph of the tick per tick (models/graph.py; the JAX package's `jax.jit`
+over a `lax.scan`); `rollout_eager` is the Python loop over ticks, which
+the CPU takes and the graph is held to.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
+
+import torch
+
 from c_game_engine_tpu_torch.core.actions import Actions
-from c_game_engine_tpu_torch.core.state import EnvState, reset, tree_map
+from c_game_engine_tpu_torch.core.state import EnvState, load_map, reset, tree_map
 from c_game_engine_tpu_torch.core.step import step_batch
+
+MAPS = Path(__file__).resolve().parents[1] / "maps"
 
 
 def reset_batch(cmap, batch: int, save=None, frame=None) -> EnvState:
@@ -38,8 +51,85 @@ def bench_actions(ticks: int, batch: int, device="cuda") -> Actions:
     return acts
 
 
-def rollout(cmap, state: EnvState, actions: Actions) -> EnvState:
-    """Step through a [T, B, ...] action stream; returns the final state."""
+def rollout_eager(cmap, state: EnvState, actions: Actions) -> EnvState:
+    """Step through a [T, B, ...] action stream tick by tick in Python;
+    returns the final state."""
     for t in range(actions.move.shape[0]):
         state = step_batch(cmap, state, actions[t])
     return state
+
+
+def rollout(cmap, state: EnvState, actions: Actions) -> EnvState:
+    """Step through a [T, B, ...] action stream; returns the final state.
+    CUDA tensors replay the map's tick graph, CPU tensors run
+    `rollout_eager`."""
+    if state.tick.is_cuda:
+        from c_game_engine_tpu_torch.models.graph import tick_graph
+
+        return tick_graph(cmap, state).run(state, actions)[0]
+    return rollout_eager(cmap, state, actions)
+
+
+def rollout_collect_eager(cmap, state: EnvState, actions: Actions, collect_fn):
+    """rollout_collect tick by tick in Python."""
+    rows = []
+    for t in range(actions.move.shape[0]):
+        state = step_batch(cmap, state, actions[t])
+        rows.append(collect_fn(state))
+    return state, tree_map(lambda *xs: torch.stack(xs), rows[0], *rows[1:])
+
+
+def rollout_collect(cmap, state: EnvState, actions: Actions, collect_fn):
+    """Like rollout, also stacking collect_fn(state) after each tick:
+    returns (final state, [T, ...] stacked output). collect_fn returns a
+    tensor or a Struct of tensors. On a CUDA device it is captured into the
+    tick graph, which the map keeps until another collect_fn object comes:
+    a new function object (a lambda written in the call) costs a new
+    capture on every call, two warm-up ticks and about as much pool memory
+    as `rollout`'s graph (PERF.md §5). CPU tensors run
+    `rollout_collect_eager`."""
+    if state.tick.is_cuda:
+        from c_game_engine_tpu_torch.models.graph import tick_graph
+
+        return tick_graph(cmap, state, collect_fn).run(state, actions)
+    return rollout_collect_eager(cmap, state, actions, collect_fn)
+
+
+@dataclass
+class BatchedSim:
+    """A map with its batched entry points (`reset()`, `step(state,
+    actions)`, `rollout(state, actions)`)."""
+
+    cmap: Any
+    batch: int
+    reset: Any
+    step: Any
+    rollout: Any
+
+    @property
+    def name(self) -> str:
+        return self.cmap.aux["name"] if self.cmap.aux else "map"
+
+
+def _graph_step(cmap, state: EnvState, actions: Actions) -> EnvState:
+    """One tick through the map's tick graph."""
+    from c_game_engine_tpu_torch.models.graph import tick_graph
+
+    return tick_graph(cmap, state).run(state, tree_map(lambda x: x[None], actions))[0]
+
+
+def make_sim(map_name: str, batch: int = 4096, jit: bool = True, device="cuda") -> BatchedSim:
+    """BatchedSim on a committed map (c_game_engine_tpu_torch/maps/<name>)
+    or an exported map's .npz path (its .json beside it): the port has no
+    map compiler yet. jit=True steps and rolls out through the CUDA tick
+    graph and raises on a CPU device; jit=False runs the eager tick."""
+    path = Path(map_name)
+    if path.suffix != ".npz":
+        path = MAPS / f"{map_name}.npz"
+    cmap = load_map(path, path.with_suffix(".json"), device)
+    if jit and cmap.device.type != "cuda":
+        raise ValueError(f"make_sim(jit=True) captures a CUDA graph; device {cmap.device} has none "
+                         "(pass jit=False for the eager tick)")
+    step, roll = (_graph_step, rollout) if jit else (step_batch, rollout_eager)
+    return BatchedSim(cmap=cmap, batch=batch, reset=lambda: reset_batch(cmap, batch),
+                      step=functools.partial(step, cmap), rollout=functools.partial(roll, cmap))

@@ -18,7 +18,9 @@ buffer: depth -1e30, normal (0, 1, 0), point 0.
 
 `body_contacts` launches the CUDA kernel (csrc/body_contacts.cu) for CUDA
 tensors and runs `_contacts_plain`, the same computation in plain PyTorch,
-for CPU tensors. `launches` counts kernel launches.
+for CPU tensors. `launches` counts kernel launches
+(a device count, utils/counters.py, so replays of a captured CUDA graph
+count too).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from c_game_engine_tpu_torch.ops.chunk_compact import (
     gather_listed_chunks,
 )
 from c_game_engine_tpu_torch.physics import geometry_soa as g
+from c_game_engine_tpu_torch.utils import counters
 
 BLK = 128
 K = 4
@@ -45,7 +48,11 @@ EDGE_EPS = 1e-3
 BODY_ROWS = 16
 _NEG_BIG = -1e30
 
-launches = 0
+
+def __getattr__(name):
+    if name == "launches":
+        return counters.read("body_contacts")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _feature_active(qtx, qty, qtz, ax, ay, az, bx, by, bz, cx, cy, cz, f_ab, f_bc, f_ca):
@@ -139,7 +146,6 @@ def _kernel():
 
 
 def _launch(tri16, idx, cnt, body11, verts, is_box):
-    global launches
     from c_game_engine_tpu_torch.ops.build import check, check_rows_aligned
 
     tri16, idx, cnt, body11, verts = (t.contiguous() for t in (tri16, idx, cnt, body11, verts))
@@ -154,7 +160,7 @@ def _launch(tri16, idx, cnt, body11, verts, is_box):
         out.data_ptr(), b, stream,
     )
     check(err, "body_contacts")
-    launches += 1
+    counters.bump("body_contacts", body11.device)
     return out
 
 

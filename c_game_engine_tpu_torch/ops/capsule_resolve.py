@@ -15,7 +15,9 @@ keeps that for parity.
 
 `resolve_capsule` launches the CUDA kernel (csrc/capsule_resolve.cu) for
 CUDA tensors and runs `resolve_capsule_plain`, the same computation in
-plain PyTorch, for CPU tensors. `launches` counts kernel launches.
+plain PyTorch, for CPU tensors. `launches` counts kernel launches
+(a device count, utils/counters.py, so replays of a captured CUDA graph
+count too).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from c_game_engine_tpu_torch.physics.character import (
     CAPSULE_RADIUS,
     MAX_SLOPE_COS,
 )
+from c_game_engine_tpu_torch.utils import counters
 
 BLK = 128
 T_CHUNK = 32
@@ -44,7 +47,11 @@ ITERS = 4
 MARGIN = 1.0
 _NEG_BIG = -1e30
 
-launches = 0
+
+def __getattr__(name):
+    if name == "launches":
+        return counters.read("capsule_resolve")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def chunk_lists(chunk_bounds, pos):
@@ -106,7 +113,6 @@ def _kernel():
 
 
 def _launch(tri16, idx, cnt, box8, boxh, pos, vel):
-    global launches
     from c_game_engine_tpu_torch.ops.build import check, check_rows_aligned
 
     args = [t.contiguous() for t in (tri16, idx, cnt, box8, boxh, pos, vel)]
@@ -123,7 +129,7 @@ def _launch(tri16, idx, cnt, box8, boxh, pos, vel):
         pos_out.data_ptr(), vel_out.data_ptr(), grounded.data_ptr(), b, stream,
     )
     check(err, "capsule_resolve")
-    launches += 1
+    counters.bump("capsule_resolve", pos.device)
     return pos_out, vel_out, grounded
 
 

@@ -30,7 +30,8 @@ nothing and keeps the initial values. `raster_tiles` and
 `raster_tiles_plain` take lists built by `bin_triangles` (or any lists)
 and run the plain walk; on the card the lists exist only inside the
 kernel, so `raster_tiles` takes CPU tensors only. `launches` counts kernel
-launches, one per pass.
+launches, one per pass (a device count, utils/counters.py, so replays of
+a captured CUDA graph count too).
 """
 
 from __future__ import annotations
@@ -40,12 +41,18 @@ import functools
 
 import torch
 
+from c_game_engine_tpu_torch.utils import counters
+
 TILE_H = 8
 TILE_W = 128
 L_CAP = 512
 N_COLS = 48
 
-launches = 0
+
+def __getattr__(name):
+    if name == "launches":
+        return counters.read("raster_tiles")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def bin_triangles(sx, sy, tri_ok, height, width):
@@ -206,7 +213,6 @@ def _kernel():
 
 
 def _launch(tri48, tri_ok, exclude, tile_on, height, width):
-    global launches
     from c_game_engine_tpu_torch.ops.build import check
 
     if not all(x.is_contiguous() for x in (tri48, tri_ok, exclude, tile_on) if x is not None):
@@ -223,7 +229,7 @@ def _launch(tri48, tri_ok, exclude, tile_on, height, width):
         b, t, height // TILE_H, width // TILE_W, stream,
     )
     check(err, "raster_tiles")
-    launches += 1
+    counters.bump("raster_tiles", tri48.device)
     return _planes(out_f, out_i)
 
 

@@ -22,7 +22,9 @@ ymin ymax | 14-15 unused.
 
 `raster_tiles_big` launches the CUDA kernel (csrc/raster_tiles_big.cu) for
 CUDA tensors and runs `raster_tiles_big_plain`, the same computation in
-plain PyTorch, for CPU tensors. `launches` counts kernel launches.
+plain PyTorch, for CPU tensors. `launches` counts kernel launches
+(a device count, utils/counters.py, so replays of a captured CUDA graph
+count too).
 """
 
 from __future__ import annotations
@@ -33,13 +35,18 @@ import functools
 import torch
 
 from c_game_engine_tpu_torch.ops.raster_tiles import TILE_H, TILE_W
+from c_game_engine_tpu_torch.utils import counters
 
 T_CHK = 4096  # rows per chunk
 SUB = 64  # rows per subchunk
 N_ROWS = 16
 DEAD = 1e30  # the bbox bound of a row that can never overlap a tile
 
-launches = 0
+
+def __getattr__(name):
+    if name == "launches":
+        return counters.read("raster_tiles_big")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def level_bboxes(bxmin, bxmax, bymin, bymax, group):
@@ -213,7 +220,6 @@ def _kernel():
 
 
 def _launch(trit, cbox, scb, exclude, tile_on, height, width):
-    global launches
     from c_game_engine_tpu_torch.ops.build import check
 
     if not all(x.is_contiguous() for x in (trit, cbox, scb, exclude, tile_on) if x is not None):
@@ -230,5 +236,5 @@ def _launch(trit, cbox, scb, exclude, tile_on, height, width):
         z.data_ptr(), win.data_ptr(), b, t // T_CHK, height // TILE_H, width // TILE_W, stream,
     )
     check(err, "raster_tiles_big")
-    launches += 1
+    counters.bump("raster_tiles_big", trit.device)
     return z, win

@@ -10,7 +10,9 @@ widens its block's box as it does on the TPU.
 `ray_tris` launches the CUDA kernel (csrc/ray_tris.cu) for CUDA tensors,
 which builds each block's chunk list itself (one launch after `_pack`),
 and runs `ray_tris_plain` for CPU tensors, which builds the lists with
-`chunk_lists`. `launches` counts kernel launches.
+`chunk_lists`. `launches` counts kernel launches
+(a device count, utils/counters.py, so replays of a captured CUDA graph
+count too).
 """
 
 from __future__ import annotations
@@ -27,11 +29,16 @@ from c_game_engine_tpu_torch.ops.chunk_compact import (
     gather_listed_chunks,
 )
 from c_game_engine_tpu_torch.physics import geometry_soa as g
+from c_game_engine_tpu_torch.utils import counters
 
 BLK = 128
 MISS = 1e30
 
-launches = 0
+
+def __getattr__(name):
+    if name == "launches":
+        return counters.read("ray_tris")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _pack(origin, direction, max_dist):
@@ -108,7 +115,6 @@ def _kernel():
 
 
 def _launch(tri16, chunk_bounds, rays):
-    global launches
     from c_game_engine_tpu_torch.ops.build import check, check_rows_aligned
 
     tri16, chunk_bounds = tri16.contiguous(), chunk_bounds.contiguous()
@@ -121,7 +127,7 @@ def _launch(tri16, chunk_bounds, rays):
         rays.data_ptr(), out.data_ptr(), r, stream,
     )
     check(err, "ray_tris")
-    launches += 1
+    counters.bump("ray_tris", rays.device)
     return out
 
 

@@ -17,10 +17,13 @@ from __future__ import annotations
 import torch
 
 from c_game_engine_tpu_torch.actors.defs import Layer, Motion, Shape
+from c_game_engine_tpu_torch.core import gates
 from c_game_engine_tpu_torch.ops.capsule_resolve import BLK, resolve_capsule
 from c_game_engine_tpu_torch.ops.ray_tris import ray_tris
 from c_game_engine_tpu_torch.physics import geometry_soa as g
 from c_game_engine_tpu_torch.physics.character import STEP_UP, STICK_DOWN
+from c_game_engine_tpu_torch.utils import counters
+from c_game_engine_tpu_torch.utils.mathx import const
 
 
 def _norm(v):
@@ -95,7 +98,7 @@ def update_character_batched(cmap, actors, pos, vel, dt, was_on_ground, jumping,
         solid_t = solid_t & (torch.arange(cmap.num_actors, device=dev)[:, None] != exclude_idx[None, :])
     box8, boxh = _make_kernel_ctx((solid_t, box_o, box_q, box_h))
     new_pos = pos + vel * dt
-    lifted = new_pos + torch.tensor([0.0, STEP_UP, 0.0], device=dev)
+    lifted = new_pos + const((0.0, STEP_UP, 0.0), dev)
 
     # main + step-up resolves as one double-batch kernel launch
     p12, v12, g12 = _resolve_dispatch(
@@ -109,7 +112,7 @@ def update_character_batched(cmap, actors, pos, vel, dt, was_on_ground, jumping,
     p2, v2, g2 = p12[b:], v12[b:], g12[b:]
 
     # stair step-up
-    horiz = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    horiz = const((1.0, 0.0, 1.0), dev)
     h_in = _norm(vel * horiz)
     h_out = _norm(v * horiz)
     blocked = (h_in > 1e-4) & (h_out < 0.9 * h_in)
@@ -120,17 +123,18 @@ def update_character_batched(cmap, actors, pos, vel, dt, was_on_ground, jumping,
     grounded = torch.where(use_step, g2, grounded)
 
     # stick-to-floor: a full resolve launch, consumed only by lanes that
-    # just left the ground; skipped batch-globally when nobody needs it.
-    # The `.any()` is a host sync (the JAX tick's lax.cond).
+    # just left the ground; skipped batch-globally when nobody needs it
+    # (the JAX tick's lax.cond; a gate of core/gates.py, its open ticks
+    # counted as "stick_gate" in utils/counters.py)
     want_stick = was_on_ground & ~jumping & (v[:, 1] <= 1e-4) & ~grounded
-    if bool(want_stick.any()):
-        p3, v3, g3 = _resolve_dispatch(
-            cmap, p + torch.tensor([0.0, -STICK_DOWN, 0.0], device=dev), v, box8, boxh
-        )
+
+    def stick_to_floor():
+        counters.bump("stick_gate", dev)
+        p3, v3, g3 = _resolve_dispatch(cmap, p + const((0.0, -STICK_DOWN, 0.0), dev), v, box8, boxh)
         stick = want_stick & g3
-        p = torch.where(stick[:, None], p3, p)
-        v = torch.where(stick[:, None], v3, v)
-        grounded = grounded | stick
+        return torch.where(stick[:, None], p3, p), torch.where(stick[:, None], v3, v), grounded | stick
+
+    p, v, grounded = gates.gate(gates.read(want_stick.any()), stick_to_floor, lambda: (p, v, grounded))
 
     pos_out = torch.where(noclip[:, None], new_pos, p)
     vel_out = torch.where(noclip[:, None], vel, v)
@@ -185,7 +189,7 @@ def cast_rays_batched(
         cx_, cy_, cz_, qx, qy, qz, qw, hx, hy, hz, max_dist,
     )
     solid = actor_comp(solid_mask(cmap, actors.active))
-    req = torch.as_tensor(require_flags, dtype=torch.int32, device=dev)  # [] or [R]
+    req = require_flags  # an int or [R]
     solid = solid & ((cmap.flags[:, None] & req) == req)
     if exclude is not None:
         solid = solid & (torch.arange(n, device=dev)[:, None] != exclude[None, :])

@@ -16,11 +16,14 @@ triangle and pair solves, then rest-bleed and the warm-cache writeback.
 The port takes the kernel formulation the JAX package takes on the TPU
 (`_use_pallas()` true): triangle contacts come from K3's per-block chunk
 lists, not from the uniform grid. The JAX function's batch-global
-`lax.cond` gates stay gates with the same semantics, each a host sync
-here: the body-activity gate (`awake.any()`, batched.py:1764) and the
-pair-activity gate (`pair_any`, batched.py:955 and :1664). `active_ticks`
-counts the ticks on which the body-activity gate opened (K3 launches once
-on each of them). The one-hot contractions (`torch.einsum` with d2n,
+`lax.cond` gates stay gates with the same semantics (core/gates.py: a
+host `if` in eager mode, a CUDA graph conditional node in a captured
+tick): the body-activity gate (`awake.any()`, batched.py:1764) and,
+inside it, the pair-activity gate (`pair_any`, batched.py:955 and :1664).
+`active_ticks` counts the ticks on which the body-activity gate opened
+(K3 launches once on each of them); it is a device count
+(utils/counters.py, "body_gate"), so replays of a captured tick count
+too. The one-hot contractions (`torch.einsum` with d2n,
 ohA, ohB: the JAX package's `_einsum32`) stay exact because TF32 is off
 (c_game_engine_tpu_torch/__init__.py). The reference's known faults
 (ROADMAP.md §3 e) are kept for parity.
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from c_game_engine_tpu_torch.actors.defs import Motion
+from c_game_engine_tpu_torch.core import gates
 from c_game_engine_tpu_torch.core.state import PAIR_WARM_CAP
 from c_game_engine_tpu_torch.ops.body_contacts import BLK as PBLK
 from c_game_engine_tpu_torch.ops.body_contacts import BODY_ROWS, body_contacts
@@ -42,6 +46,8 @@ from c_game_engine_tpu_torch.physics.character import (
     CAPSULE_RADIUS,
     CHARACTER_MASS,
 )
+from c_game_engine_tpu_torch.utils import counters
+from c_game_engine_tpu_torch.utils.mathx import const
 
 # copied from c_game_engine_tpu/physics/batched.py:65-89
 GRAVITY_Y = -9.81
@@ -61,7 +67,12 @@ LAT_M = 0.05  # lateral clip margin of the pair manifold (batched.py:853)
 
 assert P_CAP <= PAIR_WARM_CAP, "warm-start cache narrower than the pair table"
 
-active_ticks = 0
+
+def __getattr__(name):
+    if name == "active_ticks":  # ticks on which the body-activity gate opened
+        return counters.read("body_gate")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 # the 8 signed corners of a box (batched.py:746-754)
 _SIGNS = np.array(
@@ -179,7 +190,7 @@ def _pair_gen(cmap, w):
         vA_x, vA_y, vA_z = (hvA[..., k].permute(0, 2, 1) for k in range(3))
         vB_x, vB_y, vB_z = (hvB[..., k].permute(0, 2, 1) for k in range(3))
     else:
-        s_of = lambda k: torch.as_tensor(_SIGNS[:, k], device=dev)[None, :, None]  # [1, 8, 1]
+        s_of = lambda k: const(tuple(_SIGNS[:, k].tolist()), dev)[None, :, None]  # [1, 8, 1]
         vA_x, vA_y, vA_z = (s_of(k) * h[:, None, :] for k, h in enumerate((hax, hay, haz)))
         vB_x, vB_y, vB_z = (s_of(k) * h[:, None, :] for k, h in enumerate((hbx, hby, hbz)))
 
@@ -337,7 +348,6 @@ def step_bodies_batched(cmap, actors, player_pos, player_vel, dt, n_substeps: in
 
     Returns (pos, quat, vel, omega, sleep, warm_n, warm_pair,
     warm_pair_idx) like the JAX function."""
-    global active_ticks
     if cmap.aux.get("num_dynamic", 1) == 0:
         return _no_bodies(cmap, actors, dt)
     B, n = actors.pos.shape[0], cmap.num_actors
@@ -449,29 +459,31 @@ def step_bodies_batched(cmap, actors, player_pos, player_vel, dt, n_substeps: in
     wvals_st = actors.warm_pair.T
     wkeys_st = actors.warm_pair_idx.T
 
-    # ---- batch-global body-activity gate (batched.py:1764): a host sync
-    if bool(awake.any()):
-        active_ticks += 1
-        # batch-global pair-activity gate (batched.py:955): a host sync
-        pair_any = bool(torch.any(pair_bp & (awake[:, None, :] | awake_nb[None, :, :])))
+    carry0 = (dpx, dpy, dpz, dqx, dqy, dqz, dqw, dvx, dvy, dvz, dwx, dwy, dwz)
+
+    def active():
+        counters.bump("body_gate", dev)
+        # batch-global pair-activity gate (batched.py:955)
+        pair_any = gates.read(torch.any(pair_bp & (awake[:, None, :] | awake_nb[None, :, :])))
         tables = dict(
             n=n, D=D, B=B, P=P, dev=dev, slc=slc, pair_bp=pair_bp, keep_pair=keep_pair,
             o_c=(o_cx, o_cy, o_cz), o_q=(oqx, oqy, oqz, oqw), o_v=(ovx, ovy, ovz), o_inv_m=o_inv_m,
             cc0=(ccx0, ccy0, ccz0), dq0=(dqx, dqy, dqz, dqw),
         )
-        pr = _pair_gen(cmap, tables) if pair_any else _pair_zero(D, B, P, dev)
+        pr = gates.gate(pair_any, lambda: _pair_gen(cmap, tables), lambda: _pair_zero(D, B, P, dev))
         body = dict(
             D=D, B=B, P=P, h=h, n_substeps=n_substeps, awake=awake, pair_any=pair_any,
             d_inv_m=d_inv_m, iI=(iIx, iIy, iIz), dh=(dhx, dhy, dhz), dc=(dcx, dcy, dcz), d_mu=d_mu,
             d_verts=d_verts, d_is_box=d_is_box, cc0=(ccx0, ccy0, ccz0), player=(ppx, ppy, ppz, pvx, pvy, pvz),
             d_on_t=d_on_t, pair_bp=pair_bp, pny=pny,
         )
-        carry = _bodies_active(cmap, body, pr, (dpx, dpy, dpz, dqx, dqy, dqz, dqw, dvx, dvy, dvz, dwx, dwy, dwz),
-                               wt_st, wvals_st, wkeys_st)
-        (dpx, dpy, dpz, dqx, dqy, dqz, dqw, dvx, dvy, dvz, dwx, dwy, dwz, wt_ret, wp_ret, wkeys_ret) = carry
-    else:
-        # nothing awake: poses frozen, warm cache passes through untouched
-        wt_ret, wp_ret, wkeys_ret = wt_st, wvals_st[:P], wkeys_st[:P]
+        return _bodies_active(cmap, body, pr, carry0, wt_st, wvals_st, wkeys_st)
+
+    # nothing awake: poses frozen, warm cache passes through untouched
+    idle = lambda: (*carry0, wt_st, wvals_st[:P], wkeys_st[:P])
+    # ---- batch-global body-activity gate (batched.py:1764)
+    carry = gates.gate(gates.read(awake.any()), active, idle)
+    (dpx, dpy, dpz, dqx, dqy, dqz, dqw, dvx, dvy, dvz, dwx, dwy, dwz, wt_ret, wp_ret, wkeys_ret) = carry
 
     # sleep counter: consecutive ticks with point speed under threshold
     diag2 = dhx * dhx + dhy * dhy + dhz * dhz  # [D, 1]
@@ -748,15 +760,20 @@ def _bodies_active(cmap, w, pr, carry0, wt_st, wvals_st, wkeys_st):
         tri_acc0 = {"tc_n": wt_eff, "tc_t": torch.zeros_like(tc_px),
                     "tp_n": torch.zeros_like(c_d), "tp_t": torch.zeros_like(c_d)}
         c0 = (dvx, dvy, dvz, dwx, dwy, dwz)
-        if not pair_any:
+
+        def tri_only():
             # no live pair candidates this tick: the fused triangle solve
             c = c0 + (tri_acc0,)
             for _i in range(SOLVER_ITERS):
                 c = tri_iter(c)
             zz = torch.zeros_like(dpx)
-            outs = c[:6] + (zz, zz, zz, c[6]["tc_n"], wp_c)
-        else:
-            outs = loop_with_pairs(c0, tri_iter, tri_acc0, dqx, dqy, dqz, dqw, dpx, dpy, dpz, wp_c)
+            return c[:6] + (zz, zz, zz, c[6]["tc_n"], wp_c)
+
+        outs = gates.branch(
+            pair_any,
+            lambda: loop_with_pairs(c0, tri_iter, tri_acc0, dqx, dqy, dqz, dqw, dpx, dpy, dpz, wp_c),
+            tri_only,
+        )
         (dvx, dvy, dvz, dwx, dwy, dwz, pushdx, pushdy, pushdz, tc_n, wp_new) = outs
         wt_new = torch.where(coherent, tc_n, 0.0)
         # slew-rate-limited, EMA-smoothed cache update (batched.py:1669-1686)
@@ -1021,8 +1038,6 @@ def _bodies_active(cmap, w, pr, carry0, wt_st, wvals_st, wkeys_st):
     wt_act = torch.where(awake, wt_fin, wt_st)
     aw_f2 = awake.float()
     paw2 = (torch.einsum("db,pdb->pb", aw_f2, ohA) + torch.einsum("db,pdb->pb", aw_f2, ohB)) > 0.5
-    wp_act = torch.where(paw2, wp_fin, wp0)
-    if not pair_any:
-        wp_act = wvals_st[:P]
-    keys_act = fidx_keys if pair_any else wkeys_st[:P]
+    wp_act = gates.select(pair_any, torch.where(paw2, wp_fin, wp0), wvals_st[:P])
+    keys_act = gates.select(pair_any, fidx_keys, wkeys_st[:P])
     return (dpx, dpy, dpz, dqx, dqy, dqz, dqw, dvx, dvy, dvz, dwx, dwy, dwz, wt_act, wp_act, keys_act)

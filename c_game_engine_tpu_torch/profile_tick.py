@@ -1,21 +1,28 @@
 """Profile the port's tick on one GPU with torch.profiler.
 
-    python3 -m c_game_engine_tpu_torch.profile_tick [map] [batch] [ticks]
+    python3 -m c_game_engine_tpu_torch.profile_tick [map] [batch] [ticks] [eager|graph]
 
-(defaults: arena_bodies, 4096 envs, 10 ticks). Loads a committed map
-(c_game_engine_tpu_torch/maps/), runs 8 warm-up ticks of the bench.py
-stream (hold W, look += 0.01), then profiles `ticks` more and prints one
-JSON line: the card, wall ms per tick, device kernel ms per tick, the
-device's busy share, kernel launches and host syncs per tick, and the
-device time of each hand-written kernel per tick and per launch, with its
-share. A run without a
-CUDA device fails.
+(defaults: arena_bodies, 4096 envs, 10 ticks, eager). Loads a committed
+map (c_game_engine_tpu_torch/maps/), runs 8 warm-up ticks of the bench.py
+stream (hold W, look += 0.01), then profiles `ticks` more, either through
+the eager loop (models/sim.py::rollout_eager) or as replays of the map's
+captured tick graph (models/sim.py::rollout; the capture happens before
+the profiled window), and prints one JSON line: the card, the mode, wall
+ms per tick, device kernel ms per tick, the device's busy share, device
+kernel launches per tick, what the host issued per tick (kernel
+launches, graph launches, copies and fills), host syncs per tick, Memcpy
+HtoD and DtoH per tick, and the device time of each hand-written kernel
+per tick and per launch, with its share and its launches in the window.
+
+A host sync here is a tensor read on the host (`aten::_local_scalar_dense`:
+bool(t), int(t), t.item()). Copies from the host (Memcpy HtoD: a tensor
+built from Python values on the card) and to it (Memcpy DtoH) stall the
+host too; they are counted apart. A run without a CUDA device fails.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -23,6 +30,9 @@ from pathlib import Path
 MAPS = Path(__file__).resolve().parent / "maps"
 # the hand-written kernels' CUDA function names
 KERNEL_NAMES = ("capsule_resolve_kernel", "ray_tris_kernel", "body_contacts_kernel")
+# host-side runtime calls that put work on the card
+HOST_KERNEL_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+HOST_COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy", "cudaMemset")
 
 
 def device_summary(prof, kernel_names):
@@ -50,6 +60,26 @@ def device_summary(prof, kernel_names):
     return device_us, launches, syncs, kernels
 
 
+def host_summary(prof):
+    """What the host issued and copied in a torch.profiler run: {"kernel
+    launches", "graph launches", "copies and fills" (runtime calls),
+    "memcpy_htod", "memcpy_dtoh" (device copies)}."""
+    out = dict.fromkeys(("kernel_launches", "graph_launches", "copies_and_fills", "memcpy_htod",
+                         "memcpy_dtoh"), 0)
+    for e in prof.key_averages():
+        if e.key in HOST_KERNEL_CALLS:
+            out["kernel_launches"] += e.count
+        elif e.key == "cudaGraphLaunch":
+            out["graph_launches"] += e.count
+        elif e.key in HOST_COPY_CALLS:
+            out["copies_and_fills"] += e.count
+        elif e.key.startswith("Memcpy HtoD"):
+            out["memcpy_htod"] += e.count
+        elif e.key.startswith("Memcpy DtoH"):
+            out["memcpy_dtoh"] += e.count
+    return out
+
+
 def tick_calls(cmap, state, acts):
     """Run one tick and record the arguments it hands K1, K2 and K3, each
     tensor cloned: (the next state, {"k1": [args, ...], "k2": ..., "k3": ...})."""
@@ -74,12 +104,50 @@ def tick_calls(cmap, state, acts):
     return state, seen
 
 
-def main(argv) -> int:
+def profile_rollout(cmap, state, acts, mode="eager"):
+    """Profile one rollout of `acts` from `state`, eagerly or as graph
+    replays (the graph must be captured before, e.g. by a warm-up rollout,
+    so the window holds replays only). Returns (final state, summary dict
+    with per-tick figures and each hand kernel's launches in the window)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from c_game_engine_tpu_torch.models.sim import rollout, rollout_eager
+
+    roll = {"eager": rollout_eager, "graph": rollout}[mode]
+    ticks = acts.move.shape[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = roll(cmap, state, acts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, launches, syncs, found = device_summary(prof, KERNEL_NAMES)
+    host = host_summary(prof)
+    kernels = {k: {"ms_per_tick": dev / 1e3 / ticks, "launches": n, "ms_per_launch": dev / 1e3 / n,
+                   "share_of_device_time": dev / device_us if device_us else None}
+               for k, (dev, n) in found.items()}
+    return state, {
+        "mode": mode, "ticks": ticks,
+        "wall_ms_per_tick": wall * 1e3 / ticks,
+        "device_ms_per_tick": device_us / 1e3 / ticks,
+        "busy_share": device_us / 1e6 / wall if wall else None,
+        "launches_per_tick": launches / ticks,
+        "host_per_tick": {k: v / ticks for k, v in host.items() if not k.startswith("memcpy")},
+        "host_syncs_per_tick": syncs / ticks,
+        "memcpy_htod_per_tick": host["memcpy_htod"] / ticks,
+        "memcpy_dtoh_per_tick": host["memcpy_dtoh"] / ticks,
+        "kernels": kernels,
+    }
+
+
+def main(argv) -> int:
+    import torch
+
+    from c_game_engine_tpu_torch.bench import card_line
     from c_game_engine_tpu_torch.core.state import load_map
-    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.models.graph import tick_graph
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout_eager
 
     if not torch.cuda.is_available():
         print("profile_tick: no CUDA device", file=sys.stderr)
@@ -87,30 +155,17 @@ def main(argv) -> int:
     name = argv[0] if argv else "arena_bodies"
     batch = int(argv[1]) if len(argv) > 1 else 4096
     ticks = int(argv[2]) if len(argv) > 2 else 10
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    mode = argv[3] if len(argv) > 3 else "eager"
     cmap = load_map(MAPS / f"{name}.npz", MAPS / f"{name}.json", "cuda")
     acts = bench_actions(8 + ticks, batch)
-    state = rollout(cmap, reset_batch(cmap, batch), acts[:8])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state = rollout(cmap, state, acts[8:])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_us, launches, syncs, found = device_summary(prof, KERNEL_NAMES)
-    kernels = {k: {"ms_per_tick": dev / 1e3 / ticks, "launches": n, "ms_per_launch": dev / 1e3 / n,
-                   "share_of_device_time": dev / device_us if device_us else None}
-               for k, (dev, n) in found.items()}
-    print(json.dumps({
-        "card": card, "map": name, "batch": batch, "ticks": ticks,
-        "wall_ms_per_tick": wall * 1e3 / ticks,
-        "device_ms_per_tick": device_us / 1e3 / ticks,
-        "busy_share": device_us / 1e6 / wall if wall else None,
-        "launches_per_tick": launches / ticks,
-        "host_syncs_per_tick": syncs / ticks,
-        "kernels": kernels,
-    }))
+    state = rollout_eager(cmap, reset_batch(cmap, batch), acts[:8])
+    extra = {}
+    if mode == "graph":
+        graph = tick_graph(cmap, state)
+        graph.run(state, acts[8:])  # the first replays, outside the window
+        extra = {"capture_s": graph.capture_s, "graph_pool_bytes": graph.pool_bytes}
+    _, summary = profile_rollout(cmap, state, acts[8:], mode)
+    print(json.dumps({"card": card_line(), "map": name, "batch": batch, **summary, **extra}))
     return 0
 
 

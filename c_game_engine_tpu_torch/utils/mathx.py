@@ -7,12 +7,17 @@ Quaternions are (x, y, z, w) like Jolt's JPH_Quat.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
-def clamp(x, lo, hi):
-    return torch.minimum(torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device)),
-                         torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+@functools.cache
+def const(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant vector built once per (values, device, dtype): the tick
+    then copies nothing from the host (a CUDA graph capture refuses such a
+    copy). Callers must not write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def lerp(a, b, t):
@@ -33,7 +38,10 @@ def quat_from_axis_angle(axis, angle):
     """Unit quaternion for `angle` radians about unit `axis`.
     Broadcasts: axis [..., 3], angle [...]."""
     angle = angle.float()[..., None]
-    axis = torch.as_tensor(axis, dtype=torch.float32, device=angle.device)
+    if isinstance(axis, (list, tuple)):
+        axis = const(tuple(axis), angle.device)
+    else:
+        axis = torch.as_tensor(axis, dtype=torch.float32, device=angle.device)
     xyz = axis * torch.sin(angle * 0.5)
     w = torch.cos(angle * 0.5).expand(xyz.shape[:-1] + (1,))
     return torch.cat([xyz, w], dim=-1)

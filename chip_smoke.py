@@ -27,30 +27,50 @@ Phases (any failure exits non-zero and prints no result line):
      pairs that are inside), and the earlier count that charged every hit
      pair 40 flops;
   4. reference checks: 30 ticks at 256 envs of each tick map on the card
-     against the same ticks run by the plain versions on the CPU; then 4
+     (through the tick graph) against the same ticks run by the plain
+     versions on the CPU; then 4
      envs after 30 ticks, one per sweep heading, rendered at 256 x 256 on
      the card against the plain path on the CPU (at most 0.2% of pixels off
      by more than 1/255), of arena_lit and of arena_orb;
-  5. main paths, each with every kernel's launch counter reset just before
+  5. graph phase: 240 ticks x 4096 envs of arena and 60 of arena_bodies
+     from reset through the map's captured tick graph
+     (models/graph.py) and through the eager loop, bit for bit, with the
+     same kernel launches and gate counts; each graph's capture seconds
+     and pool memory; then gate states (`gate_states`: lanes lifted above
+     the floor with on_ground set; sound-op bits; arena_bodies with every
+     body asleep until the player walks into a box), each gate open on
+     some ticks and closed on others, graph against eager bit for bit
+     (models/graph_check.py); then rollout_collect of player.pos over 250
+     ticks x 256 envs of arena (two chunks of the graph's 240-tick action
+     stream, a different turn on every tick), the final state and every
+     row against the eager loop bit for bit;
+  6. main paths, through the tick graph, each with every device count
+     (kernel launches, gate ticks; utils/counters.py) reset just before
      and read just after: load_map -> reset_batch(4096) -> rollout of 240
      ticks of the bench.py stream (hold W, look += 0.01), first on arena
      (K1, K2), then on arena_bodies (K1, K2, K3; K3 launches once on each
      tick on which some body is awake, the rigid-body step's gate); then
+     240 replays of arena and 8 of arena_bodies under torch.profiler: K1,
+     K2 and K3 launches counted in the trace against the ticks and gate
+     counts, and no host sync and no Memcpy HtoD in the replays; then
      the render path: load_map + load_bundle of arena_lit ->
      reset_batch(64) -> 60 ticks of the stream -> the 4-heading yaw sweep
      of benchmarks/run_all.py::bench_render at 256 x 256, once as warm-up
      and once timed (K4 twice per frame batch: pass 1 and the reveal);
      then the same render path on arena_orb (K5 twice per frame batch, K4
-     never).
+     never);
+  7. the entry points: a c_game_engine_tpu_torch.long_run resume proof
+     (40 ticks of 256 envs in segments of 20, bitwise), one
+     c_game_engine_tpu_torch.bench call and one entry() step.
 The last three lines are the card's name and power limit, a JSON object
-with each kernel's launches, error, times and bound, and
-{"ok": true, "device": {...}}.
+with each kernel's launches, error, times and bound (and steps/s of the
+graph and of the eager loop, the graphs, the per-replay figures, the
+long run and the bench), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -58,6 +78,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BATCH, TICKS = 4096, 240
+# arena_bodies' eager loop takes about 0.3 s a tick at 4096 envs: the graph
+# phase holds 60 replays to 60 eager ticks; the profiled window is shorter
+# still (a replay traces about 31,600 kernels, and a 24-replay window lost
+# events)
+BODIES_EAGER_TICKS, PROFILE_BODIES_TICKS = 60, 8
+LONG_RUN = ("arena", 40, 20, 256)  # map, ticks, segment, envs
+# rollout_collect on the graph: more ticks than the graph's action stream
+# holds (models/graph.py::CAP, 240), so it runs in two chunks
+COLLECT_BATCH, COLLECT_TICKS = 256, 250
 KERNELS = ("capsule_resolve", "ray_tris", "body_contacts", "raster_tiles", "raster_tiles_big")
 # the render main path: bench_render's batch, size and sweep
 RENDER_BATCH, SIZE, HEADINGS, RENDER_TICKS = 64, 256, 4, 60
@@ -94,31 +123,6 @@ K5_EVERY_PAIR_FLOPS = 40
 # clamp, 5 for the interpolated 1/w, 3 weights, fragment depth 6 and eight
 # interpolations of 6).
 K4_BOX_FLOPS, K4_BIN_FLOPS, K4_PIXEL_FLOPS = 8, 4, 67
-
-
-def kernel_modules():
-    """{kernel name: its ops module}; each module counts its launches."""
-    from c_game_engine_tpu_torch.ops import body_contacts, capsule_resolve, raster_tiles, raster_tiles_big, ray_tris
-
-    return {"capsule_resolve": capsule_resolve, "ray_tris": ray_tris, "body_contacts": body_contacts,
-            "raster_tiles": raster_tiles, "raster_tiles_big": raster_tiles_big}
-
-
-def reset_counts():
-    for m in kernel_modules().values():
-        m.launches = 0
-
-
-def read_counts():
-    return {k: m.launches for k, m in kernel_modules().items()}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_time(fn, reps=20):
@@ -322,27 +326,53 @@ def reference_phase(name, cmap_gpu, cmap_cpu):
           f"(player y {float(C['player.pos'][0, 1]):.4f})", flush=True)
 
 
+def graph_phase(name, cmap, ticks):
+    """BATCH envs x `ticks` of the bench stream through the tick graph and
+    through the eager loop: bit for bit, the same launches and gate
+    counts. Returns both steps/s and the graph's capture figures."""
+    from c_game_engine_tpu_torch.models.graph import tick_graph
+    from c_game_engine_tpu_torch.models.graph_check import graph_and_eager, same_leaves
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch
+
+    state = reset_batch(cmap, BATCH)
+    runs = graph_and_eager(cmap, state, bench_actions(ticks, BATCH, "cuda"))
+    (g, gk, gg, gs), (e, ek, eg, es) = runs["graph"], runs["eager"]
+    n = same_leaves(f"graph phase {name}", g, e)
+    if (gk, gg) != (ek, eg):
+        raise AssertionError(f"graph phase {name}: graph counts {gk} {gg}, eager {ek} {eg}")
+    graph = tick_graph(cmap, state)
+    out = {"graph_steps_per_s": BATCH * ticks / gs, "eager_steps_per_s": BATCH * ticks / es, "ticks": ticks,
+           "capture_s": graph.capture_s, "pool_bytes": graph.pool_bytes}
+    print(f"graph phase {name}: {ticks} ticks x {BATCH} envs, graph equals the eager loop bit for bit "
+          f"({n} leaves); graph {gs:.3f} s = {out['graph_steps_per_s']:.1f} steps/s, eager {es:.3f} s = "
+          f"{out['eager_steps_per_s']:.1f} steps/s; launches {gk}, gates {gg} in both; capture "
+          f"{graph.capture_s:.2f} s, pool {graph.pool_bytes / 2**20:.1f} MiB", flush=True)
+    return out
+
+
 def main_path(cmap, label):
-    """240 ticks x 4096 envs with every launch counter reset just before and
-    read just after. Returns (final state, counts, seconds, gate ticks)."""
+    """240 ticks x 4096 envs through the map's tick graph (captured by an
+    earlier phase; four replays first), with every count reset just
+    before and read just after. Returns (final state, counts, seconds,
+    gate ticks)."""
     import torch
 
+    from c_game_engine_tpu_torch.models.graph_check import gate_counts, kernel_counts
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
-    from c_game_engine_tpu_torch.physics import bodies
+    from c_game_engine_tpu_torch.utils import counters
 
     acts = bench_actions(TICKS, BATCH, "cuda")
     rollout(cmap, reset_batch(cmap, BATCH), acts[:4])  # warm-up
     torch.cuda.synchronize()
     state = reset_batch(cmap, BATCH)
     torch.cuda.synchronize()
-    reset_counts()
-    bodies.active_ticks = 0
+    counters.reset()
     t0 = time.perf_counter()
     state = rollout(cmap, state, acts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts()
-    gate = bodies.active_ticks
+    counts = kernel_counts()
+    gate = gate_counts()["body_gate"]
 
     from c_game_engine_tpu_torch.core.state import tree_leaves
 
@@ -354,6 +384,36 @@ def main_path(cmap, label):
     if int(state.tick[0]) != TICKS:
         raise AssertionError(f"{label}: tick {int(state.tick[0])} != {TICKS}")
     return state, counts, dt, gate
+
+
+def profile_phase(name, cmap, ticks):
+    """`ticks` replays of the tick graph from reset under torch.profiler:
+    K1-K3 launches counted in the trace (K1 once a tick plus once a tick
+    the stick gate opens, K2 once a tick, K3 once a tick the body gate
+    opens, read from the device counts), and no host sync and no HtoD
+    copy in the window."""
+    from c_game_engine_tpu_torch.models.graph_check import gate_counts
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch
+    from c_game_engine_tpu_torch.profile_tick import profile_rollout
+    from c_game_engine_tpu_torch.utils import counters
+
+    state, acts = reset_batch(cmap, BATCH), bench_actions(ticks, BATCH, "cuda")
+    counters.reset()
+    _, prof = profile_rollout(cmap, state, acts, "graph")
+    opened = gate_counts()
+    seen = {k: prof["kernels"].get(f"{k}_kernel", {}).get("launches", 0) for k in KERNELS[:3]}
+    want = {"capsule_resolve": ticks + opened["stick_gate"], "ray_tris": ticks, "body_contacts": opened["body_gate"]}
+    if seen != want:
+        raise AssertionError(f"profile {name}: the trace holds launches {seen}, expected {want}")
+    if prof["host_syncs_per_tick"] != 0 or prof["memcpy_htod_per_tick"] != 0:
+        raise AssertionError(f"profile {name}: {prof['host_syncs_per_tick']} host syncs and "
+                             f"{prof['memcpy_htod_per_tick']} HtoD copies per replayed tick")
+    print(f"profile {name}: {ticks} replays, launches in the trace {seen}; per tick: "
+          f"{prof['host_syncs_per_tick']} host syncs, {prof['memcpy_htod_per_tick']} HtoD, "
+          f"{prof['memcpy_dtoh_per_tick']} DtoH, host {prof['host_per_tick']}, device "
+          f"{prof['device_ms_per_tick']:.3f} ms, wall {prof['wall_ms_per_tick']:.3f} ms, "
+          f"busy {prof['busy_share']:.3f}", flush=True)
+    return {**prof, "trace_launches": seen}
 
 
 def sunk_bodies(cmap, state):
@@ -449,11 +509,12 @@ def k5_bound(args, kwargs, planes):
 def capture_passes(module, fn_name, cmap, bundle, state):
     """The (args, kwargs) of each call of module.fn_name in one SIZE x SIZE
     render_batch, and the launches of every kernel during it."""
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
     from c_game_engine_tpu_torch.profile_render import render_calls
 
-    before = read_counts()
+    before = kernel_counts()
     seen = render_calls(module, fn_name, bundle, cmap, state, SIZE)
-    return seen, {k: v - before[k] for k, v in read_counts().items()}
+    return seen, {k: v - before[k] for k, v in kernel_counts().items()}
 
 
 def raster_passes(tag, kernel, plain, seen, compare, bound):
@@ -601,18 +662,20 @@ def render_main_path(cmap, bundle, state, kernel):
     (counts, seconds, coverages)."""
     import torch
 
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
     from c_game_engine_tpu_torch.render.raster import render_batch, yaw_sweep
+    from c_game_engine_tpu_torch.utils import counters
 
     states = yaw_sweep(state, HEADINGS)
     warm = [render_batch(bundle, cmap, s, SIZE, SIZE) for s in states]
     covs = [coverage(f[0]) for f in warm]
     torch.cuda.synchronize()
-    reset_counts()
+    counters.reset()
     t0 = time.perf_counter()
     frames = [render_batch(bundle, cmap, s, SIZE, SIZE) for s in states]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts()
+    counts = kernel_counts()
     for k, (f, w) in enumerate(zip(frames, warm)):
         if f.shape != (RENDER_BATCH, SIZE, SIZE, 3) or not bool(torch.isfinite(f).all()):
             raise AssertionError(f"render heading {k}: frames {tuple(f.shape)} not finite")
@@ -627,26 +690,53 @@ def render_main_path(cmap, bundle, state, kernel):
     return counts, dt, covs
 
 
+def entry_points_phase(card):
+    """The entry points around the graph: a long_run resume proof at a small
+    size (LONG_RUN), one bench call (4096 envs x 240 ticks of arena; its
+    card must be this card) and one entry() step."""
+    import torch
+
+    from c_game_engine_tpu_torch import bench, long_run
+    from c_game_engine_tpu_torch.entry import entry
+
+    name, total, segment, batch = LONG_RUN
+    run = long_run.run(name, total, segment, batch, "cuda", ROOT / "build" / "long_run",
+                       log=lambda line: print(f"long_run: {line}", flush=True))
+    b = bench.bench("arena", BATCH, TICKS)
+    if f"{b['card']}, {b['power_limit']}" != card or b["map"] != "arena":
+        raise AssertionError(f"bench names card {b['card']}, {b['power_limit']} and map {b['map']}")
+    print(f"bench: {json.dumps(b)}", flush=True)
+    fn, args = entry()
+    out = fn(*args)
+    if int(out.tick[0]) != 1 or not bool(torch.isfinite(out.player.pos).all()) or out.tick.shape != (256,):
+        raise AssertionError("entry(): the graphed step did not advance 256 envs by one finite tick")
+    print("entry(): ok, one graphed tick of 256 envs on arena", flush=True)
+    return {"long_run": {k: run[k] for k in ("map", "batch", "ticks", "segment", "leaves", "env_steps_per_s")},
+            "bench": b}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    card = card_line()
-    print(f"card: {card}", flush=True)
-
     sys.path.insert(0, str(ROOT))
+    from c_game_engine_tpu_torch.bench import card_line
     from c_game_engine_tpu_torch.core.state import load_map
+    from c_game_engine_tpu_torch.models.graph_check import check_collect, check_gate_state, gate_states
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
     from c_game_engine_tpu_torch.ops import build
     from c_game_engine_tpu_torch.render.bundle import load_render_map
 
+    card = card_line()
+    print(f"card: {card}", flush=True)
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(build.build, KERNELS))
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(KERNELS)} kernels in parallel "
-          f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        list(pool.map(build.build, KERNELS + ("graph_cond",)))
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(KERNELS)} kernels and the graph's if-node "
+          f"helper in parallel (nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
     maps = ROOT / "c_game_engine_tpu_torch" / "maps"
     load = lambda name, dev: load_map(maps / f"{name}.npz", maps / f"{name}.json", dev)
@@ -669,7 +759,20 @@ def main() -> int:
     render_reference_phase("arena_lit", lit, lit_bundle)
     render_reference_phase("arena_orb", orb, orb_bundle)
 
-    # main paths
+    # the tick graph against the eager loop, on the bench stream and on
+    # states that open and close each gate
+    graphs = {"arena": graph_phase("arena", arena, TICKS),
+              "arena_bodies": graph_phase("arena_bodies", bodies_map, BODIES_EAGER_TICKS)}
+    for kind, (cm, st, acts) in gate_states(arena, bodies_map, BATCH).items():
+        opened, counts = check_gate_state(kind, cm, st, acts)
+        print(f"gate state {kind}: {acts.move.shape[0]} ticks x {BATCH} envs, graph equals the eager loop "
+              f"bit for bit; gates {opened}, launches {counts}", flush=True)
+    chunks = check_collect(arena, COLLECT_BATCH, COLLECT_TICKS)
+    print(f"rollout_collect arena: {COLLECT_TICKS} ticks x {COLLECT_BATCH} envs of player.pos through the "
+          f"collect graph in {chunks} chunks of the action stream equal the eager loop bit for bit, the "
+          f"final state and every row", flush=True)
+
+    # main paths, through the tick graph
     by_path = {}
     state, counts, dt, _ = main_path(arena, "arena")
     for name in ("capsule_resolve", "ray_tris"):
@@ -678,7 +781,8 @@ def main() -> int:
     steps = BATCH * TICKS / dt
     by_path["arena"] = {"counts": counts, "steps_per_s": steps}
     print(f"main path arena: {TICKS} ticks x {BATCH} envs in {dt:.3f} s = {steps:.1f} steps/s "
-          f"on {card}; launches {counts}; final player pos {state.player.pos[0].tolist()}", flush=True)
+          f"(graph; eager {graphs['arena']['eager_steps_per_s']:.1f}) on {card}; launches {counts}; "
+          f"final player pos {state.player.pos[0].tolist()}", flush=True)
 
     state, counts, dt, gate = main_path(bodies_map, "arena_bodies")
     for name in ("capsule_resolve", "ray_tris"):
@@ -693,8 +797,10 @@ def main() -> int:
     steps = BATCH * TICKS / dt
     by_path["arena_bodies"] = {"counts": counts, "steps_per_s": steps, "gate_ticks": gate}
     print(f"main path arena_bodies: {TICKS} ticks x {BATCH} envs in {dt:.3f} s = {steps:.1f} steps/s "
-          f"on {card}; launches {counts}; body gate open on {gate} ticks; "
-          f"final player pos {state.player.pos[0].tolist()}", flush=True)
+          f"(graph; eager {graphs['arena_bodies']['eager_steps_per_s']:.1f}) on {card}; launches {counts}; "
+          f"body gate open on {gate} ticks; final player pos {state.player.pos[0].tolist()}", flush=True)
+    profiles = {"arena": profile_phase("arena", arena, TICKS),
+                "arena_bodies": profile_phase("arena_bodies", bodies_map, PROFILE_BODIES_TICKS)}
 
     for path, name, cm, rb, st, kernel in (("render", "arena_lit", lit, lit_bundle, lit_state, "raster_tiles"),
                                            ("render_orb", "arena_orb", orb, orb_bundle, orb_state,
@@ -706,14 +812,28 @@ def main() -> int:
               f"in {dt:.4f} s = {fps:.1f} frames/s on {card}; non-sky coverage by heading "
               f"{[round(c, 4) for c in covs]}; launches {counts}", flush=True)
 
+    extras = entry_points_phase(card)
+    for cm, name in ((arena, "arena"), (bodies_map, "arena_bodies")):
+        for (batch, collects), g in cm.graphs.items():
+            print(f"graph {name} x {batch}{' (collect)' if collects else ''}: capture {g.capture_s:.2f} s, "
+                  f"pool {g.pool_bytes / 2**20:.1f} MiB", flush=True)
+
     home = {"body_contacts": "arena_bodies", "raster_tiles": "render", "raster_tiles_big": "render_orb"}
     for k in report:
         k["launches"] = by_path[home.get(k["name"], "arena")]["counts"][k["name"]]
         k["launches_by_path"] = {p: v["counts"][k["name"]] for p, v in by_path.items()}
+        k["launches_in_trace"] = {p: v["trace_launches"][k["name"]] for p, v in profiles.items()
+                                  if k["name"] in v["trace_launches"]}
     print(card)
     print(json.dumps({"kernels": report,
                       "steps_per_s": {p: v["steps_per_s"] for p, v in by_path.items() if "steps_per_s" in v},
-                      "frames_per_s": {p: v["frames_per_s"] for p, v in by_path.items() if "frames_per_s" in v}}))
+                      "eager_steps_per_s": {p: v["eager_steps_per_s"] for p, v in graphs.items()},
+                      "frames_per_s": {p: v["frames_per_s"] for p, v in by_path.items() if "frames_per_s" in v},
+                      "graphs": graphs, "per_replayed_tick": {
+                          p: {k: v[k] for k in ("host_syncs_per_tick", "memcpy_htod_per_tick", "memcpy_dtoh_per_tick",
+                                                "device_ms_per_tick", "wall_ms_per_tick", "busy_share",
+                                                "host_per_tick")} for p, v in profiles.items()},
+                      **extras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -10,7 +10,10 @@ K3's contacts with their tie order, K4's 12 planes and K5's, on random
 inputs and on tables of exact ties and edges (K2's edge table, K4's
 binning edge table, K5's sub-pixel table); a short rollout on
 the card is held to the CPU plain path with the slice bars of
-tests/test_torch_slice.py, and a render to the CPU's with the frame bar.
+tests/test_torch_slice.py, and a render to the CPU's with the frame bar;
+the captured tick graph is held to the eager loop bit for bit, on the
+scripted streams, on the gate states and through rollout_collect
+(models/graph_check.py).
 The helpers are imported as top-level modules of tests/ (pytest puts the
 directory on sys.path): where an installed package named `tests` exists,
 it hides the directory as a package.
@@ -146,6 +149,57 @@ def test_rollout_on_card_matches_cpu(cuda, arena):
     g = rollout(arena(cuda), reset_batch(arena(cuda), 256), torch_actions(*streams, device=cuda))
     c = rollout(arena("cpu"), reset_batch(arena("cpu"), 256), torch_actions(*streams))
     assert_leaves_match(torch_leaves(c), torch_leaves(g), {"player.pos": 2e-3})
+
+
+@pytest.mark.parametrize("name", ["arena", "arena_bodies"])
+def test_graph_matches_eager(cuda, name):
+    """The captured tick graph (models/graph.py) against the eager loop on
+    the card: 30 ticks x 256 envs of both scripted streams, every leaf
+    bit for bit, the same kernel launches and gate counts."""
+    from pathlib import Path
+
+    from c_game_engine_tpu_torch.core.state import load_map
+    from c_game_engine_tpu_torch.models.graph_check import graph_and_eager, same_leaves
+    from c_game_engine_tpu_torch.models.sim import reset_batch
+    from torch_parity import stream_batch, torch_actions
+
+    root = Path(__file__).resolve().parents[1] / MAPS
+    cmap = load_map(root / f"{name}.npz", root / f"{name}.json", cuda)
+    runs = graph_and_eager(cmap, reset_batch(cmap, 256), torch_actions(*stream_batch(30, 256, seed=0), device=cuda))
+    (g, gk, gg, _), (e, ek, eg, _) = runs["graph"], runs["eager"]
+    same_leaves(name, g, e)
+    assert (gk, gg) == (ek, eg) and gk["capsule_resolve"] >= 30 and gk["ray_tris"] == 30
+
+
+@pytest.mark.parametrize("kind", ["stick", "audio", "bodies"])
+def test_gate_state_graph_matches_eager(cuda, kind):
+    """The gate states of models/graph_check.py (chip_smoke.py's) at 256
+    envs: each gate open on some ticks and closed on others, graph against
+    eager bit for bit."""
+    from pathlib import Path
+
+    from c_game_engine_tpu_torch.core.state import load_map
+    from c_game_engine_tpu_torch.models.graph_check import check_gate_state, gate_states
+
+    root = Path(__file__).resolve().parents[1] / MAPS
+    arena, bodies = (load_map(root / f"{n}.npz", root / f"{n}.json", cuda) for n in ("arena", "arena_bodies"))
+    check_gate_state(kind, *gate_states(arena, bodies, 256)[kind])
+
+
+def test_rollout_collect_graph_matches_eager(cuda, arena):
+    """rollout_collect of player.pos through the collect graph over 250
+    ticks x 256 envs (two chunks of its 240-tick action stream, a different
+    turn on every tick) against the eager loop: the final state and every
+    row bit for bit. A second collect_fn replaces the first's graph."""
+    from c_game_engine_tpu_torch.models.graph_check import check_collect
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout_collect
+
+    cmap = arena(cuda)
+    assert check_collect(cmap, 256, 250) == 2
+    first = cmap.graphs[(256, True)]
+    _, yaw = rollout_collect(cmap, reset_batch(cmap, 256), bench_actions(3, 256, "cuda"), lambda st: st.player.yaw)
+    assert cmap.graphs[(256, True)] is not first and yaw.shape == (3, 256)
+    assert sum(collects for (_, collects) in cmap.graphs) == 1
 
 
 def test_raster_tiles_kernel_matches_plain(cuda):
