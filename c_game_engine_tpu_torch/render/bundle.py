@@ -1,14 +1,20 @@
 """RenderBundle: a map's render-side tensors (counterpart of
 c_game_engine_tpu/render/bundle.py), holding what the render path reads:
-map geometry, the actor model pool, the sky mesh, the texture atlas and the
-lightmap. The HUD, UI and viewmodel assets are not ported.
+map geometry, the actor model pool, the sky mesh, the texture atlas, the
+lightmap, the HUD assets and the viewmodel mesh. The UI assets (`ui`, the
+widget stack's) are not ported: they go with the app layer.
 
 The bundle is built by the JAX package (`build_render_bundle` needs the
 asset resolver and codecs, which stay on that side with the compiler) and
 exported to plain files by `tests/torch_export_map.py`: `<name>_bundle.npz`
 holds the array leaves (the atlas's as `atlas.<field>`, `blocked` as the
-float32 value of each bfloat16 texel, which it holds exactly) and
-`<name>_bundle.json` the static fields.
+float32 value of each bfloat16 texel, which it holds exactly; the HUD's as
+`hud.<field>`) and `<name>_bundle.json` the static fields. A map without
+the shipped HUD textures, fonts and eraser model has HUD ids of -1 and an
+empty viewmodel, as the JAX bundle has.
+
+On a CUDA device the bundle also keeps the render graphs captured for it
+(`graphs`, render/graph.py).
 
 A bundle belongs to its map, as the JAX one is built from it: loading one
 takes the map and fills the soup's row tables (`soup_rows`), which the JAX
@@ -18,6 +24,7 @@ package derives from the map's static arrays while it traces.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from c_game_engine_tpu_torch.core.state import load_map
+from c_game_engine_tpu_torch.render.hud import HUD_FIELDS, HudAssets
 from c_game_engine_tpu_torch.render.textures import TextureAtlas
 
 # the array leaves, in the order of the JAX RenderBundle
@@ -34,6 +42,7 @@ ARRAYS = (
     "mdl_pos", "mdl_uv", "mdl_color", "mdl_slot", "mdl_lod", "mdl_range",
     "mdl_lod_dist_sq", "mdl_skin_tex", "mdl_skin_color", "mdl_skin_shaded",
     "sky_pos", "sky_uv", "sky_tex",
+    "vm_pos", "vm_uv", "vm_color", "vm_tex", "vm_item",
 )
 ATLAS_ARRAYS = ("blocked", "table", "mips", "n_mips", "mip_pairs", "flag_words")
 STATIC = ("live_tri_bound", "has_alpha", "tex_names")
@@ -62,6 +71,13 @@ class RenderBundle:
     sky_pos: torch.Tensor  # [Ts, 3, 3]
     sky_uv: torch.Tensor  # [Ts, 3, 2]
     sky_tex: torch.Tensor  # [] i32 (-1 = no sky)
+    hud: HudAssets
+    # the viewmodel (the first-person item model; the eraser, item 0)
+    vm_pos: torch.Tensor  # [Tv, 3, 3]
+    vm_uv: torch.Tensor  # [Tv, 3, 2]
+    vm_color: torch.Tensor  # [Tv, 3, 4]
+    vm_tex: torch.Tensor  # [Tv] i32
+    vm_item: torch.Tensor  # [Tv] i32: the item whose selection shows the row
     # the soup's row tables on the bundle's map (soup_rows), int64
     mdl_actor_rows: torch.Tensor  # [Tmo] actor of each model triangle
     mdl_pool_rows: torch.Tensor  # [Tmo] its row in the mdl_* pool
@@ -71,6 +87,13 @@ class RenderBundle:
     # whether any texel or colour has alpha < 1: gates the reveal pass
     has_alpha: bool = True
     tex_names: tuple = ()
+
+    @functools.cached_property
+    def graphs(self) -> dict:
+        """Render graphs captured for this bundle, by their key
+        (render/graph.py::replay); a bundle made by dataclasses.replace
+        starts with none."""
+        return {}
 
 
 def soup_rows(mdl_range, cmap) -> dict:
@@ -100,6 +123,7 @@ def bundle_from_numpy(leaves: dict, static: dict, cmap) -> RenderBundle:
     atlas["blocked"] = atlas["blocked"].to(torch.bfloat16)
     return RenderBundle(
         atlas=TextureAtlas(**atlas),
+        hud=HudAssets(**{k: t(leaves[f"hud.{k}"]) for k in HUD_FIELDS}),
         **{k: t(leaves[k]) for k in ARRAYS},
         **soup_rows(leaves["mdl_range"], cmap),
         live_tri_bound=int(static["live_tri_bound"]),

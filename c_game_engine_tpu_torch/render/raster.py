@@ -1,40 +1,44 @@
 """Batched software rasterizer (counterpart of
-c_game_engine_tpu/render/raster.py, its two kernel routes).
+c_game_engine_tpu/render/raster.py).
 
     frames = render_batch(bundle, cmap, states, 256, 256)  # [B, H, W, 3]
 
 Per frame batch: gather each env's triangle soup (sky first, then map,
-actor models, actor walls) -> camera transform -> pre-clip cull -> near-plane
-clip -> per-triangle mip level and enc word -> a z pass -> shade. Where the
-map has alpha content, a second z pass re-rasterizes with each
-screen-door-discarded winner excluded (only on tiles that have such a
-pixel), and its layer is shaded on a compacted set of tiles; when some env
-has more such tiles than the budget, every env is re-shaded over the full
-frame instead.
+actor models, actor walls, and with debug_wireframe the collision
+wireframes as thin quads, render/debug_draw.py) -> camera transform ->
+pre-clip cull -> near-plane clip -> per-triangle mip level (anisotropic
+with aniso > 1) and enc word -> a z pass -> shade. Where the map has alpha
+content, a second z pass re-rasterizes with each screen-door-discarded
+winner excluded, and its layer is shaded on a compacted set of tiles; when
+some env has more such tiles than the budget, every env is re-shaded over
+the full frame instead (a `core/gates.py` gate: a host `if` eagerly, a
+conditional node in a CUDA graph).
 
 `render` and `render_batch` take the JAX package's parameters in its
-order. Under backend None or "auto" the route follows the bundle's
-live-triangle bound, as the JAX package's does on the TPU ("pallas" and
-"pallas_big" force a route):
-  * "tiles" (at most PALLAS_MAX_BOUND = 65,536): the T_CULL compaction,
-    `_clip_near` (1 triangle -> up to 2), the tri48 table and kernel K4
+order. The route follows the JAX _resolve_backend on a TPU:
+  * "tiles" (backend None/"auto" up to PALLAS_MAX_BOUND = 65,536 live
+    triangles, or "pallas"): the T_CULL compaction, `_clip_near` (1
+    triangle -> up to 2), the tri48 table and kernel K4
     (ops/raster_tiles.py), which bins the rows into tiles, keeps each
     pixel's z winner and interpolates its attributes;
-  * "big" (above): no compaction, `_clip_near_compact` (the near-plane
-    crossing rows, at most CLIP_CAP, clipped and appended), the
-    fields-major table with per-row screen bboxes and their chunk and
-    subchunk unions, and kernel K5 (ops/raster_tiles_big.py), which keeps
-    the winner id only; `_attrs_from_winner` then gathers and interpolates
-    the winner's attributes from the flattened vertex table.
+  * "big" (above the bound, or "pallas_big"): no compaction,
+    `_clip_near_compact` (the near-plane crossing rows, at most CLIP_CAP,
+    clipped and appended), the fields-major table with per-row screen
+    bboxes and their chunk and subchunk unions, and kernel K5
+    (ops/raster_tiles_big.py), which keeps the winner id only;
+  * "xla" (backend "xla", and every frame that is not whole 8 x 128
+    tiles on either kernel route): the compaction to the bundle's live
+    bound, `_clip_near`, and `_pass1_xla`, the chunked edge-function scan
+    in PyTorch ops (no kernel).
+On the big and xla routes `_attrs_from_winner` gathers and interpolates
+the winner's attributes from the flattened vertex table.
 
-Every function that the JAX package vmaps over envs takes a leading batch
-axis here. The JAX `lax.cond` on the reveal overflow is a host-side `if`:
-one host sync per frame batch.
-
-`render_batch` raises NotImplementedError for backend "xla" and for frames
-that are not whole 8x128 tiles (the JAX XLA pass 1, `_pass1_xla`, is not
-ported), and for ssaa > 1, aniso > 1 with mipmaps and debug_wireframe=True.
-Not ported either: the dual atlas, the viewmodel and the HUD.
+On a CUDA device `render_batch` and `render_with_hud_batch` replay one
+captured CUDA graph per option set (render/graph.py); the `_eager`
+functions are the plain calls, which the CPU takes. Every function that
+the JAX package vmaps over envs takes a leading batch axis here; `render`,
+`render_viewmodel` and `render_with_hud` keep the JAX one-env signatures.
+The dual atlas (`textures.py::_sample_dual`) is not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ import math
 import torch
 
 from c_game_engine_tpu_torch.actors.defs import ActorClass
+from c_game_engine_tpu_torch.core import gates
+from c_game_engine_tpu_torch.core.state import tree_map
 from c_game_engine_tpu_torch.ops import raster_tiles as K4
 from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
 from c_game_engine_tpu_torch.render.textures import sample
@@ -225,34 +231,17 @@ def _concat_parts(parts):
 
 def _resolve_backend(backend, height, width, bundle):
     """The route of the JAX `backend` as the JAX _resolve_backend picks it
-    on a TPU: "pallas" is "tiles" (K4), "pallas_big" is "big" (K5), and
-    None or "auto" is "tiles" up to PALLAS_MAX_BOUND live triangles and
-    "big" above. Raise for the XLA route, which the JAX package also takes
-    for frames that are not whole tiles."""
+    on a TPU: "pallas" is "tiles" (K4), "pallas_big" is "big" (K5), None
+    or "auto" is "tiles" up to PALLAS_MAX_BOUND live triangles and "big"
+    above, and "xla" is "xla" (`_pass1_xla`), which also takes every frame
+    that is not whole 8 x 128 tiles."""
     if backend not in (None, "auto", "pallas", "pallas_big", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "xla":
-        raise NotImplementedError("backend 'xla': the XLA pass 1 (_pass1_xla) is not ported")
-    if height % RTILE_H or width % RTILE_W:
-        raise NotImplementedError(
-            f"{height}x{width} is not whole {RTILE_H}x{RTILE_W} tiles: the XLA pass 1 "
-            "(_pass1_xla) that takes such frames is not ported")
+    if backend == "xla" or height % RTILE_H or width % RTILE_W:
+        return "xla"
     if backend in (None, "auto"):
         return "big" if bundle.live_tri_bound > PALLAS_MAX_BOUND else "tiles"
     return "tiles" if backend == "pallas" else "big"
-
-
-def _check_ported(ssaa, aniso, mipmaps, debug_wireframe):
-    """Raise for the JAX render options the port does not serve yet."""
-    if ssaa > 1:
-        raise NotImplementedError(f"ssaa={ssaa}: supersampling (the JAX render_batch's ssaa > 1 branch) "
-                                  "is not ported")
-    if aniso > 1 and mipmaps:
-        raise NotImplementedError(f"aniso={aniso}: the anisotropic footprint (aniso_uv in the JAX "
-                                  "_render_env) is not ported")
-    if debug_wireframe:
-        raise NotImplementedError("debug_wireframe: render/debug_draw.py (collect_segments, "
-                                  "segments_to_part) is not ported")
 
 
 def _tile_pack(a, order_c, nty, ntx):
@@ -282,13 +271,23 @@ def _per_env(x, like):
 
 
 def shade(bundle, state, gx, gy, uv, lmuv, color, tex_id, kind, shaded, frag_depth,
-          lod=None, flags=None):
+          lod=None, flags=None, aniso_step=None, aniso_taps=0):
     """The fragment math of the map, model and sky shaders over pixel arrays
     [B, ...]. Returns (rgb, discard); a screen-door-discarded pixel is the
-    caller's (the reveal pass)."""
+    caller's (the reveal pass). aniso_step [B, ..., 2] with aniso_taps > 1
+    averages min(aniso_taps, 8) taps spaced along the footprint's major
+    axis, summed in tap order (the step is zero for isotropic pixels)."""
     env = state.env
     pe = lambda x: _per_env(x, kind)
-    tex4 = sample(bundle.atlas, tex_id, uv, lod=lod, flags=flags)
+    if aniso_step is not None and aniso_taps > 1:
+        taps = min(int(aniso_taps), 8)
+        acc = None
+        for k in range(taps):
+            s = sample(bundle.atlas, tex_id, uv + aniso_step * ((k + 0.5) / taps - 0.5), lod=lod, flags=flags)
+            acc = s if acc is None else acc + s
+        tex4 = acc / taps
+    else:
+        tex4 = sample(bundle.atlas, tex_id, uv, lod=lod, flags=flags)
     tex4 = torch.where((tex_id < 0)[..., None], 1.0, tex4)  # -1: flat vertex colour
 
     out = tex4 * color[..., 3:4]
@@ -319,17 +318,22 @@ def shade(bundle, state, gx, gy, uv, lmuv, color, tex_id, kind, shaded, frag_dep
     return rgb, discard
 
 
-def _shade_generic(bundle, state, pass_data, gxx, gyy, mipmaps):
-    """Decode the enc word and shade a pass's pixels at any image shape.
-    Returns (rgb, discard with sky left out)."""
+def _shade_generic(bundle, state, pass_data, gxx, gyy, aniso_uv, mipmaps, aniso):
+    """Decode the enc word and shade a pass's pixels at any image shape;
+    aniso_uv [B, T, 2] (or None) is each row's tap step. Returns (rgb,
+    discard with sky left out)."""
     has, winner, uv, lmuv, color, frag_depth, genc = pass_data
     tex_id = (genc & 0xFFF) - 1
     kind = (genc >> 12) & 3
     shaded = ((genc >> 14) & 1).bool()
     lod_pix = ((genc >> 15) & 63).float() * 0.25 if mipmaps else None
     flags = (((genc >> 21) & 1).bool(), ((genc >> 22) & 1).bool())
+    astep = None
+    if aniso_uv is not None:
+        bi = torch.arange(winner.shape[0], device=winner.device).reshape(-1, *([1] * (winner.ndim - 1)))
+        astep = aniso_uv[bi, winner.clamp_min(0).long()]
     rgb, disc = shade(bundle, state, gxx, gyy, uv, lmuv, color, tex_id, kind, shaded, frag_depth,
-                      lod=lod_pix, flags=flags)
+                      lod=lod_pix, flags=flags, aniso_step=astep, aniso_taps=aniso)
     return rgb, disc & has & (kind != KIND_SKY)
 
 
@@ -367,9 +371,9 @@ def _attrs_from_winner(vattr36, enc, winner, gxx, gyy):
 
 def _pass_data_of(route, raw, vattr36, enc, gxx, gyy):
     """A pass's raw output as the per-pixel attribute tuple: on the tile
-    route the 12 kernel planes, on the big route the winner image, whose
-    attributes are gathered and interpolated here."""
-    if route == "big":
+    route the 12 kernel planes, on the big and xla routes the winner
+    image, whose attributes are gathered and interpolated here."""
+    if route != "tiles":
         return _attrs_from_winner(vattr36, enc, raw, gxx, gyy)
     (_zb, winner, frag_depth, uv_u, uv_v, lm_u, lm_v, col_r, col_g, col_b, col_a, genc) = raw
     has = winner >= 0
@@ -385,7 +389,10 @@ def _combine_layers(rgb1, disc1, has1, layer2):
     return rgb.clamp(0.0, 1.0)
 
 
+@functools.lru_cache(maxsize=None)
 def _pixel_grid(height, width, device):
+    """The pixel centres (gx, gy), each [H, W], built once per (size,
+    device)."""
     px = torch.arange(width, dtype=torch.float32, device=device) + 0.5
     py = torch.arange(height, dtype=torch.float32, device=device) + 0.5
     gy, gx = torch.meshgrid(py, px, indexing="ij")
@@ -400,11 +407,11 @@ def _fog_rgb(state):
 def _finish_reveal_full(bundle, ctx, state, height, width, mipmaps):
     """Overflow fallback: shade the reveal pass over the full frame from
     the carried pass-2 output (the kernel planes, or the winner image and
-    the vertex table on the big route)."""
+    the vertex table on the big and xla routes)."""
     b = ctx["rgb1"].shape[0]
     gx, gy = (g.expand(b, height, width) for g in _pixel_grid(height, width, ctx["rgb1"].device))
     p2 = _pass_data_of(ctx["route"], ctx["raw2"], ctx["vattr36"], ctx["enc"], gx, gy)
-    rgb2, disc2 = _shade_generic(bundle, state, p2, gx, gy, mipmaps)
+    rgb2, disc2 = _shade_generic(bundle, state, p2, gx, gy, ctx["aniso_uv"], mipmaps, ctx["aniso"])
     layer2 = torch.where((p2[0] & ~disc2)[..., None], rgb2, _fog_rgb(state)[:, None, None, :])
     return _combine_layers(ctx["rgb1"], ctx["disc1"], ctx["has1"], layer2)
 
@@ -420,8 +427,6 @@ def render(bundle, cmap, state, height=256, width=256, fov_deg=90.0, backend=Non
            mipmaps=True, ssaa=1, aniso=0, debug_wireframe=False):
     """Render one env's view (a state without a batch axis): [H, W, 3].
     The JAX signature; see render_batch."""
-    from c_game_engine_tpu_torch.core.state import tree_map
-
     one = tree_map(lambda x: x.unsqueeze(0), state)
     return render_batch(bundle, cmap, one, height, width, fov_deg, backend, mipmaps, ssaa, aniso,
                         debug_wireframe)[0]
@@ -430,28 +435,61 @@ def render(bundle, cmap, state, height=256, width=256, fov_deg=90.0, backend=Non
 def render_batch(bundle, cmap, states, height=256, width=256, fov_deg=90.0, backend=None,
                  mipmaps=True, ssaa=1, aniso=0, debug_wireframe=False):
     """Render every env of a batched state: f32 [B, H, W, 3] in [0, 1].
-    The JAX signature, in its order. backend None, "auto", "pallas" or
-    "pallas_big" picks the route as on a TPU (_resolve_backend);
-    mipmaps=False samples base levels only; ssaa=1, aniso at most 1 (or
-    any without mipmaps, where the JAX package samples isotropically too)
-    and debug_wireframe=False are served, and the rest raises
-    NotImplementedError naming the JAX code not ported."""
-    _check_ported(ssaa, aniso, mipmaps, debug_wireframe)
-    rgb_cmp, overflow, ctx = _render_envs(bundle, cmap, states, height, width, fov_deg, mipmaps, backend)
-    if ctx is None or not bool(overflow.any()):  # a host sync (JAX: lax.cond)
+    The JAX signature, in its order: backend None, "auto", "pallas",
+    "pallas_big" or "xla" picks the route (_resolve_backend); mipmaps=False
+    samples base levels only; ssaa=N renders at N times the size and takes
+    the N x N box mean; aniso=N > 1 with mipmaps averages N taps (at most
+    8) along each linear-filtered mipmapped triangle's footprint;
+    debug_wireframe=True draws the collision wireframes. On a CUDA device
+    this replays the bundle's captured graph for these options
+    (render/graph.py); render_batch_eager is the plain call."""
+    if states.player.pos.device.type == "cuda":
+        from c_game_engine_tpu_torch.render.graph import replay
+
+        key = ("render_batch", height, width, fov_deg, _resolve_backend(backend, height * ssaa, width * ssaa, bundle),
+               mipmaps, ssaa, aniso, debug_wireframe)
+        return replay(bundle, cmap, states, key, lambda st: render_batch_eager(
+            bundle, cmap, st, height, width, fov_deg, backend, mipmaps, ssaa, aniso, debug_wireframe))
+    return render_batch_eager(bundle, cmap, states, height, width, fov_deg, backend, mipmaps, ssaa, aniso,
+                              debug_wireframe)
+
+
+def render_batch_eager(bundle, cmap, states, height=256, width=256, fov_deg=90.0, backend=None,
+                       mipmaps=True, ssaa=1, aniso=0, debug_wireframe=False):
+    """render_batch as plain PyTorch calls on the states' device. The
+    reveal overflow (some env's screen-door pixels on more tiles than the
+    budget) re-shades every env over the full frame, through a
+    `core/gates.py` branch (JAX: lax.cond outside the vmap)."""
+    if ssaa > 1:
+        big = render_batch_eager(bundle, cmap, states, height * ssaa, width * ssaa, fov_deg, backend, mipmaps,
+                                 1, aniso, debug_wireframe)
+        return big.reshape(-1, height, ssaa, width, ssaa, 3).mean((2, 4))
+    rgb_cmp, overflow, ctx = _render_envs(bundle, cmap, states, height, width, fov_deg, mipmaps, backend, aniso,
+                                          debug_wireframe)
+    if ctx is None:
         return rgb_cmp
-    return _finish_reveal_full(bundle, ctx, states, height, width, mipmaps)
+    return gates.branch(gates.read(overflow.any()),
+                        lambda: _finish_reveal_full(bundle, ctx, states, height, width, mipmaps),
+                        lambda: rgb_cmp)
 
 
-def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=None):
+def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=None, aniso=0,
+                 debug_wireframe=False):
     """The batch's pipeline. Returns (rgb, reveal_overflow [B], ctx): ctx is
-    None when the map has no alpha content; otherwise rgb has the
-    tile-compacted reveal, and ctx carries what _finish_reveal_full needs."""
+    None when the reveal resolved here (no alpha content, or a frame that
+    is not whole tiles); otherwise rgb has the tile-compacted reveal, and
+    ctx carries what _finish_reveal_full needs."""
     route = _resolve_backend(backend, height, width, bundle)
     vp, cam_pos = camera_matrix(cmap, state, width, height, fov_deg)
     parts = gather_triangles(bundle, cmap, state, camera_pos_hint=cam_pos)
     b = cam_pos.shape[0]
     dev = cam_pos.device
+    extra_live = 0
+    if debug_wireframe:
+        from c_game_engine_tpu_torch.render.debug_draw import collect_segments, segments_to_part
+
+        parts.append(segments_to_part(*collect_segments(cmap, state), cam_pos))
+        extra_live = parts[-1]["pos"].shape[1]
 
     # sky first in the soup (the cull compaction drops the highest rows),
     # following the camera, its depth forced to 0.999999 below
@@ -482,8 +520,9 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
         [(pos[..., 0] * m(i, 0) + pos[..., 1] * m(i, 1)) + (pos[..., 2] * m(i, 2) + m(i, 3))
          for i in range(4)], -1)  # [B, T, 3, 4]
 
-    # ---- pre-clip cull + compaction (stable order; none on the big route,
-    # where K5's bbox tests skip the dead rows) ----
+    # ---- pre-clip cull + compaction (stable order; to T_CULL rows on the
+    # tile route, to the bundle's live bound on the xla route, none on the
+    # big route, where K5's bbox tests skip the dead rows) ----
     w0 = clip[..., 3]
     any_pos = (w0 > 0.01).any(-1)
     all_pos = (w0 > 0.01).all(-1)
@@ -495,7 +534,13 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
     front0 = (area0 < 0.0) | tri["twosided"]
     keep = tri["valid"] & any_pos & (~all_pos | (front0 & (area0.abs() > 1e-9)))
     t = keep.shape[1]
-    cap = min(t, T_CULL) if route == "tiles" else t
+    if route == "tiles":
+        cap = min(t, T_CULL)
+    elif route == "big":
+        cap = t
+    else:
+        bound = -(-max(bundle.live_tri_bound + extra_live, 1) // CHUNK) * CHUNK
+        cap = min(t, max(bound, CHUNK))
     if cap < t:
         ids = torch.arange(t, dtype=torch.int32, device=dev)
         order = torch.sort(torch.where(keep, ids, t), dim=1).values[:, :cap]
@@ -508,10 +553,10 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
         tri["valid"] = keep
 
     # ---- near-plane clipping: 1 triangle -> up to 2 ----
-    if route == "tiles":
-        clip, tri = _clip_near(clip, tri)
-    else:
+    if route == "big":
         clip, tri = _clip_near_compact(clip, tri, min(CLIP_CAP, clip.shape[1]))
+    else:
+        clip, tri = _clip_near(clip, tri)
     w = clip[..., 3]
     ok_w = (w > 1e-5).all(-1)
     inv_w = 1.0 / torch.where(w.abs() > 1e-9, w, 1e-9)
@@ -539,6 +584,9 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
     texel_area = (du1[..., 0] * du2[..., 1] - du1[..., 1] * du2[..., 0]).abs()
     px_area = area2.abs()
     lod = 0.5 * torch.log2(texel_area.clamp_min(1e-12) / px_area.clamp_min(1e-12))
+    aniso_uv = None
+    if aniso > 1 and mipmaps:
+        lod, aniso_uv = _aniso_footprint(sx, sy, du1, du2, tex_wh, bil_t & (atlas.n_mips[tclip] > 1), lod, aniso)
     lod_q = torch.round(lod * 4.0).clamp(0, 63).to(torch.int32)
     max_q = ((atlas.n_mips[tclip] - 1.0) * 4.0).to(torch.int32)
     lod_qc = torch.minimum(lod_q, max_q.clamp_min(0))
@@ -546,7 +594,8 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
     enc = ((tri["tex"] + 1) | (tri["kind"] << 12) | (tri["shaded"].to(torch.int32) << 14)
            | (lod_q << 15) | fw)  # < 2^23: exact in f32
 
-    gx, gy = (g.expand(b, height, width) for g in _pixel_grid(height, width, dev))
+    gx0, gy0 = _pixel_grid(height, width, dev)
+    gx, gy = gx0.expand(b, height, width), gy0.expand(b, height, width)
     if route == "tiles":
         t_act = sx.shape[1]
         tri48 = torch.cat([
@@ -567,26 +616,36 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
             return K4.raster_tiles_binned(tri48, tri_ok.contiguous(), height, width, exclude=exclude,
                                           tile_on=tile_on)
     else:
-        trit, cbox, scb = _big_table(sx, sy, sz, tri_ok)
         # the attributes of the winners, gathered afterwards: [B, T, 36]
         vattr36 = torch.cat([sx[..., None], sy[..., None], inv_w[..., None], sz[..., None],
                              tri["uv"], tri["lmuv"], tri["color"]], -1).reshape(b, sx.shape[1], 36)
+        if route == "big":
+            trit, cbox, scb = _big_table(sx, sy, sz, tri_ok)
 
-        def z_pass(exclude=None, gate=None):
-            tile_on = None if gate is None else gate.reshape(b, -1).to(torch.int32)
-            return K5.raster_tiles_big(trit, cbox, scb, height, width, exclude=exclude, tile_on=tile_on)[1]
+            def z_pass(exclude=None, gate=None):
+                tile_on = None if gate is None else gate.reshape(b, -1).to(torch.int32)
+                return K5.raster_tiles_big(trit, cbox, scb, height, width, exclude=exclude, tile_on=tile_on)[1]
+        else:
+            def z_pass(exclude=None, gate=None):  # no tile gate: the whole frame again
+                return _pass1_xla(sx, sy, sz, tri_ok, gx0, gy0, exclude)
 
     raw1 = z_pass()
     p1 = _pass_data_of(route, raw1, vattr36, enc, gx, gy)
     has1, win1 = p1[0], p1[1]
-    rgb, disc1 = _shade_generic(bundle, state, p1, gx, gy, mipmaps)
+    rgb, disc1 = _shade_generic(bundle, state, p1, gx, gy, aniso_uv, mipmaps, aniso)
     fog_rgb = _fog_rgb(state)
     if not bundle.has_alpha:
         return _combine_layers(rgb, disc1, has1, fog_rgb[:, None, None, :].expand_as(rgb)), None, None
 
     # ---- screen-door reveal: re-rasterize with the discarded winner
-    # excluded per pixel, on the tiles that have such a pixel only ----
+    # excluded per pixel (on the kernel routes only on the tiles that have
+    # such a pixel) ----
     ex_img = torch.where(disc1, win1, -1).contiguous()
+    if height % RTILE_H or width % RTILE_W:  # the xla route only: shade the whole frame
+        p2 = _pass_data_of(route, z_pass(ex_img), vattr36, enc, gx, gy)
+        rgb2, disc2 = _shade_generic(bundle, state, p2, gx, gy, aniso_uv, mipmaps, aniso)
+        layer2 = torch.where((p2[0] & ~disc2)[..., None], rgb2, fog_rgb[:, None, None, :])
+        return _combine_layers(rgb, disc1, has1, layer2), None, None
     nty, ntx = height // RTILE_H, width // RTILE_W
     disc_tile = disc1.reshape(b, nty, RTILE_H, ntx, RTILE_W).any(4).any(2)
     raw2 = z_pass(ex_img, disc_tile)
@@ -606,12 +665,84 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
     gxp, gyp = pk(gx), pk(gy)
     raw2p = tuple(pk(o) for o in raw2) if route == "tiles" else pk(raw2)
     p2p = _pass_data_of(route, raw2p, vattr36, enc, gxp, gyp)
-    rgb2p, disc2p = _shade_generic(bundle, state, p2p, gxp, gyp, mipmaps)
+    rgb2p, disc2p = _shade_generic(bundle, state, p2p, gxp, gyp, aniso_uv, mipmaps, aniso)
     layer2p = torch.where((p2p[0] & ~disc2p)[..., None], rgb2p, _per_env(fog_rgb, rgb2p[..., 0]))
     layer2_img = _tile_unpack(layer2p, order, nty, ntx, fog_rgb)
     rgb_cmp = _combine_layers(rgb, disc1, has1, layer2_img)
-    ctx = dict(route=route, rgb1=rgb, disc1=disc1, has1=has1, raw2=raw2, vattr36=vattr36, enc=enc)
+    ctx = dict(route=route, rgb1=rgb, disc1=disc1, has1=has1, raw2=raw2, vattr36=vattr36, enc=enc,
+               aniso_uv=aniso_uv, aniso=aniso)
     return rgb_cmp, overflow, ctx
+
+
+def _aniso_footprint(sx, sy, du1, du2, tex_wh, elig, lod, aniso):
+    """The anisotropic footprint (the JAX _render_env's aniso_uv): each
+    row's texel-per-pixel jacobian from its affine screen -> texel map, the
+    ellipse's axes from the eigenvalues of M M^T, and for the eligible rows
+    (linear-filtered, mipmapped) the level log2(rho_major / ratio) with the
+    ratio clipped to `aniso`. Returns (lod [B, T], tap step [B, T, 2] in
+    normalized uv, zero where not eligible)."""
+    dp1x, dp1y = sx[..., 1] - sx[..., 0], sy[..., 1] - sy[..., 0]
+    dp2x, dp2y = sx[..., 2] - sx[..., 0], sy[..., 2] - sy[..., 0]
+    det = dp1x * dp2y - dp1y * dp2x
+    idet = 1.0 / torch.where(det.abs() > 1e-9, det, 1e-9)
+    m00 = (du1[..., 0] * dp2y - du2[..., 0] * dp1y) * idet
+    m01 = (-du1[..., 0] * dp2x + du2[..., 0] * dp1x) * idet
+    m10 = (du1[..., 1] * dp2y - du2[..., 1] * dp1y) * idet
+    m11 = (-du1[..., 1] * dp2x + du2[..., 1] * dp1x) * idet
+    a_ = m00 * m00 + m01 * m01
+    b_ = m10 * m10 + m11 * m11
+    c_ = m00 * m10 + m01 * m11
+    disc = torch.sqrt(((a_ - b_) ** 2 + 4.0 * c_ * c_).clamp_min(0.0))
+    lam_hi = (0.5 * (a_ + b_ + disc)).clamp_min(1e-12)
+    lam_lo = (0.5 * (a_ + b_ - disc)).clamp_min(1e-12)
+    rho_maj = torch.sqrt(lam_hi)
+    ratio = torch.sqrt(lam_hi / lam_lo).clamp(1.0, float(aniso))
+    lod = torch.where(elig, torch.log2(rho_maj) - torch.log2(ratio), lod)
+    # the major axis of [[a, c], [c, b]] in texel space
+    big_c = c_.abs() > 1e-12
+    vx = torch.where(big_c, c_, torch.where(a_ >= b_, 1.0, 0.0))
+    vy = torch.where(big_c, lam_hi - a_, torch.where(a_ >= b_, 0.0, 1.0))
+    vn = torch.sqrt((vx * vx + vy * vy).clamp_min(1e-24))
+    span = rho_maj * (1.0 - 1.0 / ratio)  # texels covered by the taps t in [-0.5, 0.5]
+    step = torch.stack([vx / vn, vy / vn], -1) * span[..., None] / tex_wh.clamp_min(1.0)
+    return lod, torch.where(elig[..., None], step, 0.0)
+
+
+def _pass1_xla(sx, sy, sz, tri_ok, gx, gy, exclude=None):
+    """The JAX XLA pass 1: a z buffer over [B, CHUNK, H, W] edge functions,
+    chunk after chunk. sx, sy, sz [B, T, 3] (T a multiple of CHUNK), tri_ok
+    [B, T], pixel centres gx, gy [H, W], exclude [B, H, W] i32 (one row id
+    per pixel to skip, -1 none) -> winner [B, H, W] i32 (-1 none). Tie
+    rule: strictly closer wins, so of equal z the lowest row (within a
+    chunk the first minimum, taken explicitly)."""
+    b, t = sx.shape[:2]
+    dev = sx.device
+    ids = torch.arange(CHUNK, dtype=torch.int32, device=dev)[None, :, None, None]
+    zbuf = torch.full((b, *gx.shape), math.inf, device=dev)
+    winner = torch.full((b, *gx.shape), -1, dtype=torch.int32, device=dev)
+    ex = None if exclude is None else exclude[:, None]
+    e = lambda a: a[..., None, None]  # [B, CHUNK] -> [B, CHUNK, 1, 1]
+    for c0 in range(0, t, CHUNK):
+        cx, cy, cz = sx[:, c0:c0 + CHUNK], sy[:, c0:c0 + CHUNK], sz[:, c0:c0 + CHUNK]
+
+        def edges(i, j):
+            return e(cx[..., j] - cx[..., i]) * (gy - e(cy[..., i])) - e(cy[..., j] - cy[..., i]) * (gx - e(cx[..., i]))
+
+        e0, e1, e2 = edges(0, 1), edges(1, 2), edges(2, 0)
+        inside = ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)) | ((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
+        denom = e0 + e1 + e2
+        denom = torch.where(denom.abs() > 1e-9, denom, 1e-9)
+        z = (e1 * e(cz[..., 0]) + e2 * e(cz[..., 1]) + e0 * e(cz[..., 2])) / denom
+        zvalid = inside & e(tri_ok[:, c0:c0 + CHUNK]) & (z > 0.0) & (z < 1.0)
+        if ex is not None:
+            zvalid &= (ids + c0) != ex
+        z = torch.where(zvalid, z, math.inf)
+        bz = z.amin(1)
+        best = torch.where(z == bz[:, None], ids, CHUNK).amin(1)
+        closer = bz < zbuf
+        zbuf = torch.where(closer, bz, zbuf)
+        winner = torch.where(closer, best + c0, winner)
+    return winner
 
 
 def _big_table(sx, sy, sz, tri_ok):
@@ -723,3 +854,114 @@ def _clip_near(clip, tri, near_w=NEAR_W):
     tri_out["lmuv"] = attrs_out[..., 2:4]
     tri_out["color"] = attrs_out[..., 4:8]
     return clip_out, tri_out
+
+
+@functools.lru_cache(maxsize=None)
+def _viewmodel_camera(aspect, device):
+    """(the rotation about -Y by 5 degrees [3, 3], the 70-degree
+    perspective to 4 m [4, 4]) of the viewmodel, computed once on the CPU
+    in float32 and kept on `device`."""
+    yaw = torch.deg2rad(torch.tensor(5.0))
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.tensor(0.0), torch.tensor(1.0)
+    rot = torch.stack([torch.stack([cy, zero, sy]), torch.stack([zero, one, zero]), torch.stack([-sy, zero, cy])])
+    persp = perspective_lh_zo(torch.deg2rad(torch.tensor(70.0)), aspect, 0.01, 4.0)
+    return rot.to(device), persp.to(device)
+
+
+def render_viewmodel(bundle, state, frame):
+    """The first-person viewmodel over one env's frame [H, W, 3] (the JAX
+    signature; see render_viewmodel_batch)."""
+    one = tree_map(lambda x: x.unsqueeze(0), state)
+    return render_viewmodel_batch(bundle, one, frame[None])[0]
+
+
+def render_viewmodel_batch(bundle, states, frames):
+    """Draw the viewmodel (bundle.vm_*) over frames [B, H, W, 3]: rotated
+    5 degrees about -Y, moved to x = 0.5 and down by the view bob, through a
+    70-degree perspective, z-buffered by `_pass1_xla` with no depth test
+    against the frame; rows show where vm_item is the env's selected item
+    and the camera is the player's. Colour: texture x vertex colour x
+    light x exposure (the model shader without lightmap and fog), with
+    affine interpolation as in the JAX package."""
+    tv = bundle.vm_pos.shape[0]
+    if tv == 0:
+        return frames
+    b, h, w = frames.shape[:3]
+    dev = frames.device
+    rot, persp = _viewmodel_camera(w / h, dev)
+    zero = torch.zeros_like(states.player.view_bob)
+    offset = torch.stack([zero + 0.5, -(states.player.view_bob * 0.2 - 0.35), zero], -1)  # [B, 3]
+    p = bundle.vm_pos
+    # rot . p summed in the order of XLA's CPU dot, then the offset
+    world = torch.stack([(p[..., 0] * rot[i, 0] + p[..., 1] * rot[i, 1]) + p[..., 2] * rot[i, 2] for i in range(3)],
+                        -1)[None] + offset[:, None, None, :]  # [B, Tv, 3, 3]
+    x, y, z = world[..., 0], -world[..., 1], world[..., 2]
+    clip = torch.stack([(x * persp[i, 0] + y * persp[i, 1]) + (z * persp[i, 2] + persp[i, 3]) for i in range(4)], -1)
+    wc = clip[..., 3]
+    ok = (wc > 1e-4).all(-1)
+    inv_w = 1.0 / torch.where(wc.abs() > 1e-9, wc, 1e-9)
+    ndc = clip[..., :3] * inv_w[..., None]
+    sx = (ndc[..., 0] + 1) * 0.5 * w
+    sy = (ndc[..., 1] + 1) * 0.5 * h
+    sz = ndc[..., 2]
+    valid = ok & (states.camera_actor < 0)[:, None] & (bundle.vm_item[None] == states.save.current_item[:, None])
+    pad = (-tv) % CHUNK
+    if pad:
+        padded = lambda a, fill: torch.cat([a, torch.full((b, pad, *a.shape[2:]), fill, dtype=a.dtype, device=dev)], 1)
+        sx, sy, sz, valid = padded(sx, 0.0), padded(sy, 0.0), padded(sz, 1.0), padded(valid, False)
+    gx, gy = _pixel_grid(h, w, dev)
+    win = _pass1_xla(sx, sy, sz, valid, gx, gy)
+    has = win >= 0
+    bi = torch.arange(b, device=dev)[:, None, None]
+    widx = win.clamp_min(0).long()
+    vsx, vsy = sx[bi, widx], sy[bi, widx]  # [B, H, W, 3]
+
+    def edge(i, j):
+        return (vsx[..., j] - vsx[..., i]) * (gy - vsy[..., i]) - (vsy[..., j] - vsy[..., i]) * (gx - vsx[..., i])
+
+    e0, e1, e2 = edge(0, 1), edge(1, 2), edge(2, 0)
+    den = e0 + e1 + e2
+    den = torch.where(den.abs() > 1e-9, den, 1e-9)
+    b0, b1, b2 = e1 / den, e2 / den, e0 / den
+    pidx = widx.clamp_max(tv - 1)  # a padding row never wins
+    interp = lambda a: (a[pidx, 0] * b0[..., None] + a[pidx, 1] * b1[..., None]) + a[pidx, 2] * b2[..., None]
+    uv, col = interp(bundle.vm_uv), interp(bundle.vm_color)
+    tex4 = sample(bundle.atlas, bundle.vm_tex[pidx], uv)
+    env = states.env
+    rgb = (tex4[..., :3] * col[..., :3] * env.light_color[:, None, None, :3]
+           * env.exposure[:, None, None, None]).clamp(0, 1)
+    return torch.where(has[..., None], rgb, frames)
+
+
+def render_with_hud(bundle, cmap, state, height=256, width=256, fov_deg=90.0, backend=None, mipmaps=True, aniso=0):
+    """One env's full frame [H, W, 3]: the world, the viewmodel and the HUD
+    (the JAX signature; see render_with_hud_batch)."""
+    one = tree_map(lambda x: x.unsqueeze(0), state)
+    return render_with_hud_batch(bundle, cmap, one, height, width, fov_deg, backend, mipmaps, aniso)[0]
+
+
+def render_with_hud_batch(bundle, cmap, states, height=256, width=256, fov_deg=90.0, backend=None, mipmaps=True,
+                          aniso=0):
+    """Every env's full frame [B, H, W, 3] (MainStateRender: the map, the
+    viewmodel, then the HUD), the counterpart of jax.vmap(render_with_hud).
+    On a CUDA device this replays the bundle's captured graph of the whole
+    frame for these options (render/graph.py); render_with_hud_batch_eager
+    is the plain call."""
+    if states.player.pos.device.type == "cuda":
+        from c_game_engine_tpu_torch.render.graph import replay
+
+        key = ("render_with_hud", height, width, fov_deg, _resolve_backend(backend, height, width, bundle), mipmaps,
+               aniso)
+        return replay(bundle, cmap, states, key, lambda st: render_with_hud_batch_eager(
+            bundle, cmap, st, height, width, fov_deg, backend, mipmaps, aniso))
+    return render_with_hud_batch_eager(bundle, cmap, states, height, width, fov_deg, backend, mipmaps, aniso)
+
+
+def render_with_hud_batch_eager(bundle, cmap, states, height=256, width=256, fov_deg=90.0, backend=None,
+                                mipmaps=True, aniso=0):
+    """render_with_hud_batch as plain PyTorch calls on the states' device."""
+    from c_game_engine_tpu_torch.render.hud import render_hud
+
+    frames = render_batch_eager(bundle, cmap, states, height, width, fov_deg, backend, mipmaps, 1, aniso)
+    return render_hud(bundle.atlas, bundle.hud, states, render_viewmodel_batch(bundle, states, frames))

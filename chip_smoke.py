@@ -62,10 +62,27 @@ Phases (any failure exits non-zero and prints no result line):
   7. the entry points: a c_game_engine_tpu_torch.long_run resume proof
      (40 ticks of 256 envs in segments of 20, bitwise), one
      c_game_engine_tpu_torch.bench call and one entry() step.
+The render path runs through its CUDA graphs (render/graph.py): on the
+card render_batch and render_with_hud_batch replay one captured graph per
+option set, the reveal overflow a conditional node in it. So phase 3 also
+holds K4 to its plain version on the inputs the render options hand it (a
+512 x 512 frame of ssaa 2 with aniso 4 and the debug wireframes); phase 4
+also renders 4 envs of each option (a 100 x 128 xla frame, ssaa 2, aniso
+4, the wireframes, render_with_hud with the synthetic HUD and viewmodel of
+render/synthetic_hud.py) on the card against the CPU; and the render
+phases of 6 are: the render graph phase (each sweep heading and a frame
+batch with envs 0.12 m from a coin, graph against render_batch_eager bit
+for bit, the overflow gate closed and open; the graphs' capture seconds
+and pools; the replayed sweep under torch.profiler: no host sync, no HtoD
+copy, the route's kernel twice a frame batch), the render main paths
+timed through the graph and eagerly, and the HUD main path
+(render_with_hud_batch over 64 envs x 256 x 256 of arena_lit: a
+crosshair and a viewmodel on the frames; frames/s).
 The last three lines are the card's name and power limit, a JSON object
 with each kernel's launches, error, times and bound (and steps/s of the
-graph and of the eager loop, the graphs, the per-replay figures, the
-long run and the bench), and {"ok": true, "device": {...}}.
+graph and of the eager loop, the graphs, the per-replay figures, frames/s
+of the render graphs and of the eager render, the long run and the
+bench), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -546,8 +563,10 @@ def raster_passes(tag, kernel, plain, seen, compare, bound):
 
 def render_kernel_phase(cmap, bundle, state):
     """K4 against its plain version on the inputs one 64-env render_batch
-    hands it: pass 1 and the reveal pass, all 12 planes bit for bit; the
-    card path runs no `bin_triangles` (the kernel bins). Also times the
+    hands it: pass 1 and the reveal pass, all 12 planes bit for bit, and
+    likewise on the inputs of a 512 x 512 frame batch with ssaa 2, aniso 4
+    and the debug wireframes; the card path runs no `bin_triangles` (the
+    kernel bins). Also times the
     binning ops that the kernel replaced (`bin_triangles` on pass 1's
     inputs, as the wrapper before the fused kernel ran it once per frame
     batch), so that a run of the earlier tree can add them to its kernel's
@@ -555,6 +574,7 @@ def render_kernel_phase(cmap, bundle, state):
     import torch
 
     from c_game_engine_tpu_torch.ops import raster_tiles as K4
+    from c_game_engine_tpu_torch.profile_render import render_calls
 
     binning, bin_triangles = [], K4.bin_triangles
     K4.bin_triangles = lambda *a: binning.append(1) or bin_triangles(*a)
@@ -576,6 +596,14 @@ def render_kernel_phase(cmap, bundle, state):
 
     entry = raster_passes("K4 raster_tiles", K4.raster_tiles_binned, K4.raster_tiles_binned_plain, seen, compare,
                           k4_bound)
+    # the inputs the render options hand K4: 512 x 512 (ssaa 2), the
+    # wireframe quads' rows, aniso's levels in the enc column
+    for label, (a, k) in zip(("options pass1", "options reveal"),
+                             render_calls(K4, "raster_tiles_binned", bundle, cmap, state, SIZE, ssaa=2, aniso=4,
+                                          debug_wireframe=True)):
+        compare(label, K4.raster_tiles_binned(*a, **k), K4.raster_tiles_binned_plain(*a, **k))
+        print(f"K4 raster_tiles {label} ({a[0].shape[0]} envs x {a[2]}x{a[3]}, T {a[0].shape[1]}): "
+              f"bitwise equal", flush=True)
     (tri48, tri_ok, h, w), _ = seen[0]
     bin_ms = cuda_time(lambda: bin_triangles(tri48[..., 0:6:2], tri48[..., 1:6:2], tri_ok, h, w))
     print(f"K4 binning ops the kernel replaced (bin_triangles on pass 1's inputs): {bin_ms:.4f} ms", flush=True)
@@ -654,16 +682,57 @@ def coverage(frame):
     return float(((u8 - u8[0, 0]).abs().sum(-1) > 12).float().mean())
 
 
+def render_graph_phase(name, cmap, bundle, state, kernel):
+    """The map's render graph against render_batch_eager on the card, bit
+    for bit, on each sweep heading (the overflow gate closed on some and
+    open on others where the sweep overflows) and on a frame batch with
+    every eighth env 0.12 m from a coin (open); then the sweep profiled
+    eagerly and as graph replays: per replayed frame batch no host sync,
+    no HtoD copy, and `kernel` twice in the trace. Returns the profiles and
+    the gate states."""
+    from c_game_engine_tpu_torch.profile_render import profile_sweep
+    from c_game_engine_tpu_torch.render.graph_check import graph_against_eager, overflow_states
+    from c_game_engine_tpu_torch.render.raster import yaw_sweep
+
+    states = yaw_sweep(state, HEADINGS)
+    opened = [graph_against_eager(bundle, cmap, s, SIZE, SIZE)[1] for s in states]
+    _, forced = graph_against_eager(bundle, cmap, overflow_states(states[0], list(range(0, RENDER_BATCH, 8))),
+                                    SIZE, SIZE)
+    if not forced or all(opened):
+        raise AssertionError(f"render graph {name}: gate open by heading {opened}, forced {forced}: "
+                             "each side must be held")
+    prof = {mode: profile_sweep(bundle, cmap, states, SIZE, mode) for mode in ("eager", "graph")}
+    g = prof["graph"]
+    other = ({"raster_tiles", "raster_tiles_big"} - {kernel}).pop()
+    if g[kernel]["launches"] != 2 * HEADINGS or g[other]["launches"] != 0:
+        raise AssertionError(f"render graph {name}: the trace of {HEADINGS} replays holds {kernel} "
+                             f"{g[kernel]['launches']} and {other} {g[other]['launches']} times")
+    if g["host_syncs_per_frame_batch"] != 0 or g["memcpy_htod_per_frame_batch"] != 0:
+        raise AssertionError(f"render graph {name}: {g['host_syncs_per_frame_batch']} host syncs and "
+                             f"{g['memcpy_htod_per_frame_batch']} HtoD copies per replayed frame batch")
+    for mode, p in prof.items():
+        print(f"render {mode} {name}, per frame batch of {RENDER_BATCH} x {SIZE}x{SIZE}: wall "
+              f"{p['wall_ms_per_frame_batch']:.3f} ms, device {p['device_ms_per_frame_batch']:.3f} ms, busy "
+              f"{p['busy_share']:.3f}, device launches {p['launches_per_frame_batch']:.1f}, host "
+              f"{p['host_per_frame_batch']}, host syncs {p['host_syncs_per_frame_batch']}, HtoD "
+              f"{p['memcpy_htod_per_frame_batch']}, DtoH {p['memcpy_dtoh_per_frame_batch']}, {kernel} "
+              f"{p[kernel]['ms_per_launch']:.4f} ms a launch", flush=True)
+    print(f"render graph {name}: graph equals render_batch_eager bit for bit on {HEADINGS} headings (gate open "
+          f"{opened}) and with every eighth env 0.12 m from a coin (open)", flush=True)
+    return {"gate_open_by_heading": opened, "profile": prof}
+
+
 def render_main_path(cmap, bundle, state, kernel):
     """The sweep once as warm-up (coverage checked there, as bench_render
-    does), then once timed with every launch counter reset just before and
-    read just after; `kernel` is the raster kernel of the map's route,
-    which must launch twice per frame batch, and the other none. Returns
-    (counts, seconds, coverages)."""
+    does), then once timed through the map's render graph with every
+    launch counter reset just before and read just after, then once timed
+    eagerly (render_batch_eager); `kernel` is the raster kernel of the
+    map's route, which must launch twice per frame batch, and the other
+    none. Returns (counts, graph seconds, eager seconds, coverages)."""
     import torch
 
     from c_game_engine_tpu_torch.models.graph_check import kernel_counts
-    from c_game_engine_tpu_torch.render.raster import render_batch, yaw_sweep
+    from c_game_engine_tpu_torch.render.raster import render_batch, render_batch_eager, yaw_sweep
     from c_game_engine_tpu_torch.utils import counters
 
     states = yaw_sweep(state, HEADINGS)
@@ -676,18 +745,111 @@ def render_main_path(cmap, bundle, state, kernel):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernel_counts()
-    for k, (f, w) in enumerate(zip(frames, warm)):
+    t0 = time.perf_counter()
+    eager = [render_batch_eager(bundle, cmap, s, SIZE, SIZE) for s in states]
+    torch.cuda.synchronize()
+    dt_eager = time.perf_counter() - t0
+    for k, (f, w, e) in enumerate(zip(frames, warm, eager)):
         if f.shape != (RENDER_BATCH, SIZE, SIZE, 3) or not bool(torch.isfinite(f).all()):
             raise AssertionError(f"render heading {k}: frames {tuple(f.shape)} not finite")
-        if not torch.equal(f, w):
-            raise AssertionError(f"render heading {k}: the timed frames differ from the warm-up's")
+        if not (torch.equal(f, w) and torch.equal(f, e)):
+            raise AssertionError(f"render heading {k}: the timed frames differ from the warm-up's or the eager ones")
     if min(covs) < 0.03:
         raise AssertionError(f"render: sweep non-sky coverage {covs} below 0.03")
     other = ({"raster_tiles", "raster_tiles_big"} - {kernel}).pop()
     if counts[kernel] != 2 * HEADINGS or counts[other] != 0:
         raise AssertionError(f"render: {kernel} launched {counts[kernel]} times and {other} "
                              f"{counts[other]} times for {HEADINGS} frame batches")
-    return counts, dt, covs
+    return counts, dt, dt_eager, covs
+
+
+def options_reference_phase(cmap, bundle):
+    """4 envs of arena_lit after 30 ticks, each at its own sweep heading,
+    rendered with each option of render/graph_check.py's OPTIONS on the
+    card (through its graph, held to render_batch_eager bit for bit) and
+    by the plain path on the CPU, and render_with_hud_batch with the
+    synthetic HUD and viewmodel likewise: at most FRAME_BAR of pixels off
+    by more than 1/255."""
+    import math
+
+    import torch
+
+    from c_game_engine_tpu_torch.core.state import tree_map
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.render import raster as R
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+    from c_game_engine_tpu_torch.render.graph_check import OPTIONS, graph_against_eager
+    from c_game_engine_tpu_torch.render.synthetic_hud import hud_states, with_synthetic_hud
+
+    cm_cpu, rb_cpu = load_render_map("arena_lit", "cpu")
+    st = rollout(cm_cpu, reset_batch(cm_cpu, HEADINGS), bench_actions(30, HEADINGS, "cpu"))
+    st = st.replace(player=st.player.replace(
+        yaw=st.player.yaw + torch.arange(HEADINGS) * (2.0 * math.pi / HEADINGS)))
+    gst = tree_map(lambda x: x.cuda(), st)
+    out = {}
+    for label, h, w, kw in OPTIONS + (("hud", SIZE, SIZE, None),):
+        if kw is None:
+            gpu = R.render_with_hud_batch(with_synthetic_hud(bundle), cmap, hud_states(gst), h, w)
+            cpu = R.render_with_hud_batch(with_synthetic_hud(rb_cpu), cm_cpu, hud_states(st), h, w)
+        else:
+            gpu, _ = graph_against_eager(bundle, cmap, gst, h, w, **kw)
+            cpu = R.render_batch(rb_cpu, cm_cpu, st, h, w, **kw)
+        off = ((gpu.cpu() - cpu).abs().amax(-1) > 1 / 255).float().mean()
+        out[label] = float(off)
+        if not out[label] <= FRAME_BAR or not bool(torch.isfinite(gpu).all()):
+            raise AssertionError(f"render option {label}: {out[label]:.4%} of pixels differ from the CPU by more "
+                                 "than 1/255")
+        print(f"reference render option {label}: {HEADINGS} envs x {h}x{w} on the card (graph, bit-equal to the "
+              f"eager render) match the CPU plain path ({out[label]:.4%} of pixels off by more than 1/255)",
+              flush=True)
+    return out
+
+
+def hud_main_path(cmap, bundle, state):
+    """render_with_hud_batch over RENDER_BATCH envs x SIZE x SIZE with the
+    synthetic HUD and viewmodel and the HUD values of
+    synthetic_hud.hud_states: once as warm-up (the graph's capture), once
+    timed through the graph with every count reset just before and read
+    just after (K4 twice), once timed eagerly; frames equal, finite, and a
+    crosshair and a viewmodel on every env that shows them. Returns
+    (counts, graph seconds, eager seconds)."""
+    import torch
+
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
+    from c_game_engine_tpu_torch.render import raster as R
+    from c_game_engine_tpu_torch.render.synthetic_hud import hud_states, with_synthetic_hud
+    from c_game_engine_tpu_torch.utils import counters
+
+    hb, st = with_synthetic_hud(bundle), hud_states(state)
+    warm = R.render_with_hud_batch(hb, cmap, st, SIZE, SIZE)
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    frames = R.render_with_hud_batch(hb, cmap, st, SIZE, SIZE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counts()
+    t0 = time.perf_counter()
+    eager = R.render_with_hud_batch_eager(hb, cmap, st, SIZE, SIZE)
+    torch.cuda.synchronize()
+    dt_eager = time.perf_counter() - t0
+    if not (torch.equal(frames, warm) and torch.equal(frames, eager) and bool(torch.isfinite(frames).all())):
+        raise AssertionError("hud: the graph's frames differ from the warm-up's or the eager ones, or are not finite")
+    if counts["raster_tiles"] != 2 or counts["raster_tiles_big"] != 0:
+        raise AssertionError(f"hud: launches {counts} for one frame batch")
+    world = R.render_batch(hb, cmap, st, SIZE, SIZE)
+    vm = R.render_viewmodel_batch(hb, st, world)
+    mid = slice(SIZE // 2 - 12, SIZE // 2 + 12)
+    cross = (frames[:, mid, mid] != vm[:, mid, mid]).any(-1).float().mean((1, 2))
+    vm_px = (vm != world).any(-1).sum((1, 2))
+    show = st.camera_actor < 0
+    want_cross, want_vm = show & (st.player.crosshair != 2), show & (st.save.current_item == 0)
+    if not bool((cross[want_cross] > 0.2).all() and (vm_px[want_vm] > 100).all() and (vm_px[~want_vm] == 0).all()):
+        raise AssertionError(f"hud: crosshair shares {cross.tolist()}, viewmodel pixels {vm_px.tolist()}")
+    print(f"hud frames: crosshair on {int(want_cross.sum())} envs (at least {float(cross[want_cross].min()):.2f} of "
+          f"its square), viewmodel on {int(want_vm.sum())} envs (at least {int(vm_px[want_vm].min())} pixels)",
+          flush=True)
+    return counts, dt, dt_eager
 
 
 def entry_points_phase(card):
@@ -758,6 +920,7 @@ def main() -> int:
     reference_phase("arena_bodies", bodies_map, load("arena_bodies", "cpu"))
     render_reference_phase("arena_lit", lit, lit_bundle)
     render_reference_phase("arena_orb", orb, orb_bundle)
+    options_off = options_reference_phase(lit, lit_bundle)
 
     # the tick graph against the eager loop, on the bench stream and on
     # states that open and close each gate
@@ -802,21 +965,36 @@ def main() -> int:
     profiles = {"arena": profile_phase("arena", arena, TICKS),
                 "arena_bodies": profile_phase("arena_bodies", bodies_map, PROFILE_BODIES_TICKS)}
 
+    render_graphs = {}
     for path, name, cm, rb, st, kernel in (("render", "arena_lit", lit, lit_bundle, lit_state, "raster_tiles"),
                                            ("render_orb", "arena_orb", orb, orb_bundle, orb_state,
                                             "raster_tiles_big")):
-        counts, dt, covs = render_main_path(cm, rb, st, kernel)
-        fps = RENDER_BATCH * HEADINGS / dt
-        by_path[path] = {"counts": counts, "frames_per_s": fps, "coverage": covs}
+        render_graphs[name] = render_graph_phase(name, cm, rb, st, kernel)
+        counts, dt, dt_eager, covs = render_main_path(cm, rb, st, kernel)
+        fps, fps_eager = RENDER_BATCH * HEADINGS / dt, RENDER_BATCH * HEADINGS / dt_eager
+        by_path[path] = {"counts": counts, "frames_per_s": fps, "eager_frames_per_s": fps_eager, "coverage": covs}
         print(f"main path render {name}: {HEADINGS} frame batches x {RENDER_BATCH} envs x {SIZE}x{SIZE} "
-              f"in {dt:.4f} s = {fps:.1f} frames/s on {card}; non-sky coverage by heading "
-              f"{[round(c, 4) for c in covs]}; launches {counts}", flush=True)
+              f"in {dt:.4f} s = {fps:.1f} frames/s through the graph (eager {dt_eager:.4f} s = {fps_eager:.1f}) "
+              f"on {card}; non-sky coverage by heading {[round(c, 4) for c in covs]}; launches {counts}", flush=True)
+    counts, dt, dt_eager = hud_main_path(lit, lit_bundle, lit_state)
+    by_path["render_hud"] = {"counts": counts, "frames_per_s": RENDER_BATCH / dt,
+                             "eager_frames_per_s": RENDER_BATCH / dt_eager}
+    print(f"main path render_with_hud arena_lit: {RENDER_BATCH} envs x {SIZE}x{SIZE} in {dt:.4f} s = "
+          f"{RENDER_BATCH / dt:.1f} frames/s through the graph (eager {dt_eager:.4f} s = "
+          f"{RENDER_BATCH / dt_eager:.1f}); launches {counts}", flush=True)
 
     extras = entry_points_phase(card)
     for cm, name in ((arena, "arena"), (bodies_map, "arena_bodies")):
         for (batch, collects), g in cm.graphs.items():
             print(f"graph {name} x {batch}{' (collect)' if collects else ''}: capture {g.capture_s:.2f} s, "
                   f"pool {g.pool_bytes / 2**20:.1f} MiB", flush=True)
+    graph_list = []
+    for rb, name in ((lit_bundle, "arena_lit"), (orb_bundle, "arena_orb")):
+        for key, g in rb.graphs.items():
+            graph_list.append({"map": name, "key": list(key), "capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+                               "state_leaves_read": len(g.reads)})
+            print(f"render graph {name} {key}: capture {g.capture_s:.2f} s, pool {g.pool_bytes / 2**20:.1f} MiB, "
+                  f"{len(g.reads)} state leaves copied in", flush=True)
 
     home = {"body_contacts": "arena_bodies", "raster_tiles": "render", "raster_tiles_big": "render_orb"}
     for k in report:
@@ -829,6 +1007,15 @@ def main() -> int:
                       "steps_per_s": {p: v["steps_per_s"] for p, v in by_path.items() if "steps_per_s" in v},
                       "eager_steps_per_s": {p: v["eager_steps_per_s"] for p, v in graphs.items()},
                       "frames_per_s": {p: v["frames_per_s"] for p, v in by_path.items() if "frames_per_s" in v},
+                      "eager_frames_per_s": {p: v["eager_frames_per_s"] for p, v in by_path.items()
+                                             if "eager_frames_per_s" in v},
+                      "render_graphs": graph_list, "render_options_off_share": options_off,
+                      "per_frame_batch": {n: {m: {k: p[k] for k in (
+                          "wall_ms_per_frame_batch", "device_ms_per_frame_batch", "busy_share",
+                          "launches_per_frame_batch", "host_per_frame_batch", "host_syncs_per_frame_batch",
+                          "memcpy_htod_per_frame_batch", "memcpy_dtoh_per_frame_batch")} for m, p in v["profile"].items()}
+                          for n, v in render_graphs.items()},
+                      "gate_open_by_heading": {n: v["gate_open_by_heading"] for n, v in render_graphs.items()},
                       "graphs": graphs, "per_replayed_tick": {
                           p: {k: v[k] for k in ("host_syncs_per_tick", "memcpy_htod_per_tick", "memcpy_dtoh_per_tick",
                                                 "device_ms_per_tick", "wall_ms_per_tick", "busy_share",

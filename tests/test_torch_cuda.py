@@ -13,7 +13,9 @@ the card is held to the CPU plain path with the slice bars of
 tests/test_torch_slice.py, and a render to the CPU's with the frame bar;
 the captured tick graph is held to the eager loop bit for bit, on the
 scripted streams, on the gate states and through rollout_collect
-(models/graph_check.py).
+(models/graph_check.py); the render graphs to the eager render bit for
+bit with the reveal overflow gate closed and open
+(render/graph_check.py), and each render option on the card to the CPU.
 The helpers are imported as top-level modules of tests/ (pytest puts the
 directory on sys.path): where an installed package named `tests` exists,
 it hides the directory as a package.
@@ -350,3 +352,65 @@ def test_raster_tiles_big_wrapper_raises(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         k5.raster_tiles_big(wide[..., ::2], cbox, scb, 8, 128, exclude=excl)
     assert k5.launches == before
+
+
+@pytest.mark.parametrize("name", ["arena_lit", "arena_orb"])
+def test_render_graph_matches_eager(cuda, name):
+    """render_batch through the bundle's captured graph against
+    render_batch_eager on the card, bit for bit (render/graph_check.py,
+    as chip_smoke.py checks it): 8 envs x 256 x 256 after 60 ticks, one frame
+    batch at a heading where the reveal overflow gate stays closed and one
+    with two envs 0.12 m from a coin, where it opens; one graph serves
+    both, and each replay launches the route's raster kernel twice."""
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+    from c_game_engine_tpu_torch.render.graph_check import graph_against_eager, overflow_states
+    from c_game_engine_tpu_torch.utils import counters
+
+    cm, rb = load_render_map(name, cuda)
+    st = rollout(cm, reset_batch(cm, 8), bench_actions(60, 8, "cuda"))
+    _, opened = graph_against_eager(rb, cm, st, 256, 256)
+    assert not opened
+    _, opened = graph_against_eager(rb, cm, overflow_states(st, [1, 5]), 256, 256)
+    assert opened and len(rb.graphs) == 1
+    kernel = "raster_tiles" if name == "arena_lit" else "raster_tiles_big"
+    before = counters.read(kernel)
+    from c_game_engine_tpu_torch.render.raster import render_batch
+
+    render_batch(rb, cm, st, 256, 256)
+    assert counters.read(kernel) == before + 2
+
+
+@pytest.mark.parametrize("label", ["xla_100x128", "ssaa2", "aniso4", "wireframe", "hud"])
+def test_render_options_on_card_match_cpu(cuda, label):
+    """Each render option on the card (through its graph, itself bit-equal
+    to the eager render on the card) against the plain path on the CPU, 2
+    envs of arena_lit after 30 ticks at different headings: under 0.2% of
+    pixels off by more than 1/255. "hud" is render_with_hud_batch at 256 x
+    256 with the synthetic HUD and viewmodel (render/synthetic_hud.py)."""
+    from c_game_engine_tpu_torch.core.state import tree_map
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.render import raster as R
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+    from c_game_engine_tpu_torch.render.graph_check import OPTIONS, graph_against_eager
+    from c_game_engine_tpu_torch.render.synthetic_hud import hud_states, with_synthetic_hud
+
+    frames = []
+    for dev in (cuda, torch.device("cpu")):
+        cm, rb = load_render_map("arena_lit", dev)
+        st = rollout(cm, reset_batch(cm, 2), bench_actions(30, 2, dev))
+        st = st.replace(player=st.player.replace(yaw=st.player.yaw + torch.tensor([0.0, 2.5], device=dev)))
+        if label == "hud":
+            rb, st = with_synthetic_hud(rb), hud_states(st)
+            out = R.render_with_hud_batch(rb, cm, st, 256, 256)
+            if dev.type == "cuda":
+                assert torch.equal(out, R.render_with_hud_batch(rb, cm, tree_map(torch.clone, st), 256, 256))
+        else:
+            _, h, w, kw = next(o for o in OPTIONS if o[0] == label)
+            if dev.type == "cuda":
+                out, _ = graph_against_eager(rb, cm, st, h, w, **kw)
+            else:
+                out = R.render_batch(rb, cm, st, h, w, **kw)
+        frames.append(out.cpu())
+    err = (frames[0] - frames[1]).abs().amax(-1)
+    assert float((err > 1 / 255).float().mean()) <= 0.002

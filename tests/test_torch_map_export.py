@@ -86,6 +86,36 @@ def _assert_bundle_equals_fresh(name, cmap):
         assert json.load(f) == static
 
 
+# sha256 of the bundles' array leaves as committed before the HUD and
+# viewmodel fields were exported (name, dtype, shape and bytes of each, in
+# name order): adding fields must leave every earlier array as it was
+BUNDLE_DIGESTS_BEFORE_HUD = {
+    "arena_lit": "ae856d24d5f2f1a9bdf91575b2e15e8c9d37c6f0a01af1a5e8fef50c6e408ca1",
+    "arena_orb": "1b5afc447252cfdf5c3322ec0d4fe3ef743471b4e800b53a6113e8c0d6541ffd",
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUNDLE_DIGESTS_BEFORE_HUD))
+def test_bundle_arrays_before_the_hud_fields_are_unchanged(name):
+    """The committed bundle holds the HUD (`hud.<field>`) and viewmodel
+    (`vm_*`) leaves, asset-free (ids -1, no rows), and every other array
+    byte for byte as before they were added."""
+    import hashlib
+
+    from c_game_engine_tpu_torch.render.hud import HUD_FIELDS
+
+    new = {f"hud.{k}" for k in HUD_FIELDS} | {"vm_pos", "vm_uv", "vm_color", "vm_tex", "vm_item"}
+    h = hashlib.sha256()
+    with np.load(MAP_DIR / f"{name}_bundle.npz") as z:
+        assert new <= set(z.files)
+        for k in sorted(set(z.files) - new):
+            a = z[k]
+            h.update(f"{k} {a.dtype.str} {a.shape}".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        assert int(z["hud.ycoin_tex"]) == int(z["hud.font_tex"]) == -1 and z["vm_pos"].shape == (0, 3, 3)
+    assert h.hexdigest() == BUNDLE_DIGESTS_BEFORE_HUD[name]
+
+
 def test_arena_lit_meets_the_slice_requirements():
     """The arena's collision and actors plus render content: a soup of at
     most 4,000 triangles (the T_CULL compaction never engages), alpha

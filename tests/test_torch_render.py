@@ -3,10 +3,10 @@ math, texture sampling, tile binning, the tile kernel K4's plain version
 (against the Pallas kernel in interpret mode), the near-plane clip, a
 whole `render_batch` of the arena_lit map, the compacted reveal pass, far
 geometry (hazard a of ROADMAP.md §3), the actor-model rows of the
-triangle soup, the JAX signature of render/render_batch, and the frames
-and options the port raises on. Inputs are made from
-numpy seeds; the port reads the committed arena_lit files
-(tests/torch_export_map.py).
+triangle soup, the JAX signature of render/render_batch, and a frame of
+each option of the JAX render_batch (tests/torch_frames.py::check_frames).
+Inputs are made from numpy seeds; the port reads the committed arena_lit
+files (tests/torch_export_map.py).
 
 Tolerances: float results within 1e-6 where both sides evaluate the same
 float32 expressions; kernel winner ids and enc words exactly. Frames
@@ -27,6 +27,8 @@ import pytest
 import torch
 
 from tests.torch_export_map import MAP_DIR
+from tests.torch_frames import (COIN_VIEW, JaxRecorder, PortRecorder, check_frames, edge_distance, jax_arena_lit,
+                                view_states)
 from tests.torch_inputs import k4_inputs
 from tests.torch_parity import jax_actions
 
@@ -219,17 +221,6 @@ def test_clip_near_matches_jax():
             np.testing.assert_array_equal(g, j, err_msg=k)
 
 
-def _edge_distance(tris, gx, gy):
-    """Distance in pixels from each pixel centre to the nearest edge line of
-    its triangle: tris [..., 3, 2] screen vertices per pixel, float64."""
-    d = np.full(gx.shape, np.inf)
-    for i, j in ((0, 1), (1, 2), (2, 0)):
-        a, b = tris[..., i, :], tris[..., j, :]
-        e = (b[..., 0] - a[..., 0]) * (gy - a[..., 1]) - (b[..., 1] - a[..., 1]) * (gx - a[..., 0])
-        d = np.minimum(d, np.abs(e) / np.maximum(np.hypot(b[..., 0] - a[..., 0], b[..., 1] - a[..., 1]), 1e-30))
-    return d
-
-
 def test_render_batch_matches_jax(lit, monkeypatch):
     """(f) two envs after 30 ticks of the bench stream, 128 x 128, against
     the JAX render_batch on its XLA route, env 1 through the free camera
@@ -324,7 +315,7 @@ def test_render_batch_matches_jax(lit, monkeypatch):
     for k in range(2):
         for e in range(2):
             for win, xy in ((pwin[k, e], pxy[e]), (jwin[k, e], jxy[k, e])):
-                d = _edge_distance(xy[np.maximum(win, 0)], gx, gy)
+                d = edge_distance(xy[np.maximum(win, 0)], gx, gy)
                 off = differ[k, e] & (win >= 0) & (d > 1e-3)
                 assert not off.any(), f"pass {k + 1}, env {e}: {int(off.sum())} pixels change winner off an edge"
     same = ~differ.any(0)
@@ -482,37 +473,60 @@ def test_gather_triangles_model_branch_matches_jax(lit):
     assert got["valid"][1][model_rows].tolist() == [False] * 4 + [True] * 2  # far: LOD 1
 
 
-@pytest.mark.parametrize("case", ["beyond_k4_table", "not_whole_tiles", "xla", "pallas_big_not_whole_tiles",
-                                  "ssaa", "aniso", "debug_wireframe", "unknown_backend"])
-def test_unported_routes_raise(lit, case):
-    """What the port does not serve raises, naming what is missing: a frame
-    that is not whole 8 x 128 tiles (the JAX package's XLA pass 1, not
-    ported), on the tile route, on the big route that a bundle beyond
-    65,536 live triangles takes (K5; tests/test_torch_render_big.py renders
-    that route) and on the big route forced with backend "pallas_big";
-    backend "xla"; ssaa > 1; aniso > 1 with mipmaps; debug_wireframe=True;
-    an unknown backend is a ValueError."""
-    from c_game_engine_tpu_torch.models.sim import reset_batch
-    from c_game_engine_tpu_torch.render.raster import render, render_batch
+# each option the JAX render_batch takes: (height, width, route the port
+# takes, keyword arguments of both sides, the view); the JAX side renders
+# on its XLA route throughout (the CPU's)
+OPTION_CASES = {
+    "beyond_k4_table": (100, 128, "xla", {}, COIN_VIEW),  # a bundle past 65,536 live rows, not whole tiles
+    "not_whole_tiles": (100, 128, "xla", {}, COIN_VIEW),
+    "xla": (64, 128, "xla", {"backend": "xla"}, COIN_VIEW),
+    "pallas_big_not_whole_tiles": (128, 100, "xla", {"backend": "pallas_big"}, COIN_VIEW),
+    "ssaa": (64, 128, "tiles", {"ssaa": 2}, COIN_VIEW),
+    "aniso": (64, 128, "tiles", {"aniso": 4}, None),
+    "debug_wireframe": (64, 128, "tiles", {"debug_wireframe": True}, None),
+}
+
+
+@pytest.mark.parametrize("case", [*OPTION_CASES, "unknown_backend"])
+def test_every_option_renders_like_jax(lit, monkeypatch, case):
+    """Every option of the JAX render_batch renders (the JAX dual atlas
+    aside): frames that are not whole 8 x 128 tiles take the xla route
+    (`_pass1_xla`) on the tile route, on the big route that a bundle
+    beyond 65,536 live triangles takes, and with backend "pallas_big";
+    backend "xla"; ssaa 2 (through the one-env `render`); aniso 4 with
+    mipmaps; debug_wireframe. One env, held to the JAX frame by
+    tests/torch_frames.py::check_frames (ssaa after the box mean), and the
+    option shows: its frame differs from the default one. An unknown
+    backend is a ValueError."""
+    import jax
+
+    from c_game_engine_tpu.render import raster as JR
+    from c_game_engine_tpu_torch.core.state import tree_map
+    from c_game_engine_tpu_torch.render import raster as R
 
     cm, rb = lit
-    st = reset_batch(cm, 1)
-    bundle = dataclasses.replace(rb, live_tri_bound=65537) if case == "beyond_k4_table" else rb
-    calls = {
-        "beyond_k4_table": (lambda: render_batch(bundle, cm, st, 100, 128), NotImplementedError, "_pass1_xla"),
-        "not_whole_tiles": (lambda: render_batch(bundle, cm, st, 100, 128), NotImplementedError, "_pass1_xla"),
-        "pallas_big_not_whole_tiles": (lambda: render_batch(rb, cm, st, 128, 100, 90.0, "pallas_big"),
-                                       NotImplementedError, "_pass1_xla"),
-        "xla": (lambda: render_batch(rb, cm, st, H, W, backend="xla"), NotImplementedError, "_pass1_xla"),
-        "ssaa": (lambda: render(rb, cm, st, H, W, 90.0, None, True, 2), NotImplementedError, "supersampling"),
-        "aniso": (lambda: render_batch(rb, cm, st, H, W, aniso=4), NotImplementedError, "aniso_uv"),
-        "debug_wireframe": (lambda: render_batch(rb, cm, st, H, W, debug_wireframe=True), NotImplementedError,
-                            "debug_draw"),
-        "unknown_backend": (lambda: render_batch(rb, cm, st, H, W, backend="cuda"), ValueError, "backend"),
-    }
-    fn, exc, match = calls[case]
-    with pytest.raises(exc, match=match):
-        fn()
+    jc, jb = jax_arena_lit()
+    if case == "unknown_backend":
+        with pytest.raises(ValueError, match="backend"):
+            R.render_batch(rb, cm, view_states(jc, cm, [None])[1], H, W, backend="cuda")
+        return
+    h, w, route, kw, view = OPTION_CASES[case]
+    js, ps = view_states(jc, cm, [view])
+    if case == "beyond_k4_table":
+        rb, jb = dataclasses.replace(rb, live_tri_bound=65537), jb.replace(live_tri_bound=65537)
+    assert R._resolve_backend(kw.get("backend"), h * kw.get("ssaa", 1), w * kw.get("ssaa", 1), rb) == route
+    base = R.render_batch(rb, cm, ps, h, w, backend=kw.get("backend"))[0]
+    jrec, prec = JaxRecorder(monkeypatch), PortRecorder(monkeypatch)
+    jkw = {**kw, "backend": kw.get("backend", "xla")}
+    want = np.asarray(jax.jit(lambda s: JR.render_batch(jb, jc, s, h, w, **jkw))(js))[0]
+    if case == "ssaa":
+        got = R.render(rb, cm, tree_map(lambda x: x[0], ps), h, w, 90.0, None, True, 2)
+    else:
+        got = R.render_batch(rb, cm, ps, h, w, **kw)[0]
+    assert got.shape == want.shape == (h, w, 3)
+    check_frames(got.numpy(), want, prec.env(), jrec.env(), rb, ssaa=kw.get("ssaa", 1))
+    if case not in ("beyond_k4_table", "not_whole_tiles", "pallas_big_not_whole_tiles", "xla"):
+        assert float((got - base).abs().amax(-1).gt(1 / 255).float().mean()) > 0.001
 
 
 def test_render_takes_the_jax_signature(lit, monkeypatch):

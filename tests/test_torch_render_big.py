@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_render import _bench_stream, _edge_distance
+from tests.test_torch_render import _bench_stream
+from tests.torch_frames import edge_distance
 from tests.torch_inputs import k5_inputs
 from tests.torch_parity import jax_actions
 
@@ -356,7 +357,7 @@ def _explained(px, wins, xys):
         if dev[r] > 1e-3 * _scale(tri):
             continue
         tol = max(1e-3, 2.0 * float(dev[r]))
-        if all(_edge_distance(t, np.float64(gx), np.float64(gy)) <= tol for t in (tri, other[r])):
+        if all(edge_distance(t, np.float64(gx), np.float64(gy)) <= tol for t in (tri, other[r])):
             return True
     return False
 
@@ -545,7 +546,7 @@ def test_big_route_matches_tile_route(lit):
             if k == 1:
                 d &= shows2[e]
             for win, xy in ((twin[e], txy[e]), (bwin[e], bxy[e])):
-                dist = _edge_distance(xy[np.maximum(win, 0)].astype(np.float64), gx, gy)
+                dist = edge_distance(xy[np.maximum(win, 0)].astype(np.float64), gx, gy)
                 assert not (d & (win >= 0) & (dist > 1e-3)).any(), f"pass {k + 1}, heading {e}"
             differ[e] |= d
     err = np.abs(tiles - big).max(-1)

@@ -13,16 +13,14 @@ The CUDA graph itself is held to the eager loop on the card
 
 from __future__ import annotations
 
-import sys
-import traceback
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from tests.torch_parity import (
+    HostTraffic,
     assert_leaves_match,
     export_and_load,
     jax_actions,
@@ -155,28 +153,6 @@ def test_long_run_resume_proof_on_cpu(tmp_path, monkeypatch):
 # the plain kernel versions read their list lengths on the host; the card
 # path never calls them
 PLAIN = {"_resolve_plain", "_ray_tris_plain", "_contacts_plain"}
-# ops whose output size depends on the data: a capture cannot hold them
-DATA_DEPENDENT = {"nonzero", "masked_select", "unique", "_unique2", "unique_consecutive", "masked_scatter"}
-
-
-class HostTraffic(TorchDispatchMode):
-    """Counts what a capture would refuse: tensors built from host values
-    (aten.lift_fresh), host reads (aten._local_scalar_dense) and ops with a
-    data-dependent output size, outside the plain kernel versions."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen = {"lift_fresh": [], "_local_scalar_dense": [], "data_dependent": []}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.overloadpacket.__name__
-        kind = "data_dependent" if name in DATA_DEPENDENT else name
-        if kind in self.seen:
-            frames = traceback.extract_stack(sys._getframe(1))
-            if not any(f.name in PLAIN for f in frames):
-                self.seen[kind].append(next((f"{f.filename}:{f.lineno}" for f in reversed(frames)
-                                             if "c_game_engine_tpu_torch" in f.filename), "?"))
-        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("name, gate_reads", [("arena", 3), ("arena_bodies", 5)])
@@ -197,7 +173,7 @@ def test_tick_is_capture_safe(name, gate_reads):
         state = step_batch(cmap, reset_batch(cmap, B), acts[0])
     for forced in (False, True):
         before = gates.host_reads
-        with HostTraffic() as mode:
+        with HostTraffic(PLAIN) as mode:
             if forced:
                 with gates.warm_up():
                     step_batch(cmap, state, acts[1])

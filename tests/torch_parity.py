@@ -6,9 +6,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
+import traceback
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # pytest runs several workers at once; each torch process would otherwise
 # start a thread per core for the port's small CPU tensors, and together
@@ -108,3 +111,31 @@ def assert_leaves_match(J, P, float_tol=None, default=5e-3):
             np.testing.assert_allclose(b, a, atol=float_tol.get(k, default), rtol=0, err_msg=k)
         else:
             np.testing.assert_array_equal(b, a, err_msg=k)
+
+
+# ops whose output size depends on the data: a CUDA graph capture cannot hold them
+DATA_DEPENDENT = {"nonzero", "masked_select", "unique", "_unique2", "unique_consecutive", "masked_scatter"}
+
+
+class HostTraffic(TorchDispatchMode):
+    """Counts what a CUDA graph capture would refuse: tensors built from
+    host values (aten.lift_fresh), host reads (aten._local_scalar_dense)
+    and ops with a data-dependent output size, each with the port's source
+    line that issued it, outside the functions named in `plain` (the plain
+    kernel versions, which read their list lengths on the host; the card
+    path never calls them)."""
+
+    def __init__(self, plain):
+        super().__init__()
+        self.plain = set(plain)
+        self.seen = {"lift_fresh": [], "_local_scalar_dense": [], "data_dependent": []}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        kind = "data_dependent" if name in DATA_DEPENDENT else name
+        if kind in self.seen:
+            frames = traceback.extract_stack(sys._getframe(1))
+            if not any(f.name in self.plain for f in frames):
+                self.seen[kind].append(next((f"{f.filename}:{f.lineno}" for f in reversed(frames)
+                                             if "c_game_engine_tpu_torch" in f.filename), "?"))
+        return func(*args, **(kwargs or {}))
