@@ -1,24 +1,36 @@
-"""32-channel audio channel table (counterpart of the channel-table half of
-c_game_engine_tpu/audio/mixer.py: allocation, pause, stop and the per-tick
-loop/finish bookkeeping). PCM mixing (`mix_frame`) is not ported yet.
+"""Batched 32-channel audio mixer (counterpart of
+c_game_engine_tpu/audio/mixer.py): the channel table (allocation, pause,
+stop and the per-tick loop/finish bookkeeping, run inside the tick) and
+the PCM mix of a window of samples (`mix_frame`, called at whatever
+cadence the caller wants, as the reference's mixer renders asynchronously
+from the game thread).
 
 Every function here works on a batched table: AudioState leaves are
-[B, C], per-actor arguments [B, N] or [N].
+[B, C], per-actor arguments [B, N] or [N]. `mix_frame` is written with the
+batch axis where the JAX package vmaps its single-env function over envs.
+
+Spatialization (as the JAX package, PARITY.md): inverse-distance
+attenuation 1/(1+d) and constant-power stereo panning from the
+listener-space azimuth.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
+from c_game_engine_tpu_torch.audio.bank import SAMPLES_PER_TICK, SoundBank
 from c_game_engine_tpu_torch.core.state import Struct
+from c_game_engine_tpu_torch.utils.mathx import const, quat_conj, quat_from_yaw_pitch, quat_rotate
 
 NUM_CHANNELS = 32  # SOUND_SYSTEM_CHANNEL_COUNT (SoundSystem.h:10)
-MIX_RATE = 48000  # c_game_engine_tpu/audio/bank.py:18
-SAMPLES_PER_TICK = MIX_RATE // 60
 
-CATEGORY_SFX = 1  # SoundSystem.h enum SoundCategory: MUSIC 0, SFX 1, UI 2
+# sound categories (SoundSystem.h enum SoundCategory)
+CATEGORY_MUSIC = 0
+CATEGORY_SFX = 1
+CATEGORY_UI = 2
 
 
 @dataclasses.dataclass
@@ -119,3 +131,66 @@ def tick_advance(audio: AudioState, sound_len):
         loops=torch.where(finished, 0, new_loops).int(),
     )
     return audio, finished
+
+
+def mix_frame(bank: SoundBank, audio: AudioState, listener_pos, listener_quat, volumes,
+              n_samples: int = SAMPLES_PER_TICK):
+    """Render every env's stereo mix of the next `n_samples` samples.
+
+    audio leaves [B, C]; listener_pos [B, 3], listener_quat [B, 4]; volumes
+    [4] or [B, 4] f32 (master, music, sfx, ui: the Options volume fields).
+    Returns [B, n_samples, 2] f32, unclipped. Per env the arithmetic is the
+    JAX mix_frame's: the sample index in int32 (an infinite loop allows
+    int32's largest count), a floor modulo into the sound, gain = volume x
+    category volume x master."""
+    live = audio.snd >= 0
+    audible = live & ~audio.paused
+    sidx = torch.clamp(audio.snd, 0, bank.num_sounds - 1).long()
+    off = bank.table[sidx, 0]  # [B, C] i32
+    length = torch.clamp_min(bank.table[sidx, 1], 1)
+
+    t = torch.arange(n_samples, dtype=torch.int32, device=off.device)
+    cur = audio.elapsed[..., None] + t  # [B, C, n] i32
+    total_allowed = torch.where(audio.loops < 0, torch.iinfo(torch.int32).max,
+                                length * (1 + torch.clamp_min(audio.loops, 0)))[..., None]
+    valid = audible[..., None] & (cur < total_allowed)
+    idx = off[..., None] + torch.remainder(cur, length[..., None])
+    pcm = bank.pcm[torch.clamp(idx, 0, bank.pcm.shape[0] - 1).long()]  # [B, C, n, 2]
+
+    # gain = original volume x category volume x master (GetCategoryVolume)
+    vols = volumes.expand(audio.snd.shape[0], 4) if volumes.dim() == 1 else volumes
+    cat_vol = torch.gather(vols, 1, 1 + torch.clamp(audio.category, 0, 2).long())
+    gain = audio.volume * cat_vol * vols[:, :1]  # [B, C]
+
+    # positional: listener-space direction (UpdateSoundSystem listener math)
+    rel = quat_rotate(quat_conj(listener_quat)[:, None, :], audio.pos - listener_pos[:, None, :])
+    d = torch.linalg.vector_norm(rel, dim=-1)
+    att = 1.0 / (1.0 + d)
+    # constant-power pan from azimuth; forward is -Z in listener space
+    az = torch.atan2(rel[..., 0], torch.clamp_min(rel[..., 2].abs(), 1e-6) * torch.sign(-rel[..., 2]))
+    pan = torch.clamp(torch.sin(az), -1.0, 1.0)
+    theta = (pan + 1.0) * (math.pi / 4.0)
+    sqrt2 = math.sqrt(2.0)
+    l_gain = torch.where(audio.positional, att * torch.cos(theta) * sqrt2, 1.0)
+    r_gain = torch.where(audio.positional, att * torch.sin(theta) * sqrt2, 1.0)
+    lr = torch.stack([l_gain, r_gain], -1) * gain[..., None]  # [B, C, 2]
+
+    contrib = pcm * valid[..., None].float() * lr[:, :, None, :]
+    return contrib.sum(dim=1)  # [B, n, 2]
+
+
+def listener_from_state(state):
+    """Listener transform of every env of a batched state: the active
+    camera (UpdateSoundSystem uses GetState()->camera), the player's eye or
+    free camera, or the camera actor where camera_actor >= 0. Returns
+    (pos [B, 3], quat [B, 4])."""
+    p = state.player
+    up = const((0.0, 0.25, 0.0), p.pos.device)
+    pos = torch.where(p.freecam[:, None], p.freecam_pos, p.pos + up)
+    quat = quat_from_yaw_pitch(p.yaw, p.pitch)
+    use_actor = (state.camera_actor >= 0)[:, None]
+    n = state.actors.pos.shape[1]
+    ci = torch.clamp(state.camera_actor, 0, n - 1).long()[:, None, None]
+    pos = torch.where(use_actor, state.actors.pos.gather(1, ci.expand(-1, 1, 3))[:, 0], pos)
+    quat = torch.where(use_actor, state.actors.quat.gather(1, ci.expand(-1, 1, 4))[:, 0], quat)
+    return pos, quat

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
@@ -98,13 +99,25 @@ def warm_up():
 def capturing(pool):
     """Mark a capture as open: the gates' conditional nodes go into the
     graph the current stream captures, their allocations into `pool`
-    (the graph's torch.cuda.graph_pool_handle())."""
+    (the graph's torch.cuda.graph_pool_handle()). Enter it before the
+    capture begins: it collects Python's garbage and holds the cyclic
+    collector off until it exits. A map's or bundle's graphs refer back
+    to it, so an earlier graph that nothing else holds dies only in a
+    cyclic collection; PyTorch's capture no longer collects on entry, and
+    a collection during a capture destroyed such a graph and freed its
+    pool mid-capture, and the capture of an if node's body then crashed
+    (cudaStreamEndCapture, a segmentation fault)."""
     global _pool
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
     before, _pool = _pool, pool
     try:
         yield
     finally:
         _pool = before
+        if enabled:
+            gc.enable()
 
 
 @functools.cache

@@ -1,9 +1,13 @@
-"""Entry point (counterpart of __graft_entry__.py::entry): the graphed step
-of the flagship configuration with example arguments.
+"""Entry points (counterpart of __graft_entry__.py): `entry()`, the graphed
+step of the flagship configuration with example arguments, and
+`dryrun_multichip(n)`, one step of an env batch sharded over an n-entry
+mesh.
 
     python3 -m c_game_engine_tpu_torch.entry
+    python3 -m c_game_engine_tpu_torch.entry --dryrun N [--cpu]
 
-runs the step once and prints "entry(): ok".
+The first runs the step once and prints "entry(): ok"; the second prints
+"dryrun_multichip(N): ok, metric=...".
 """
 
 from __future__ import annotations
@@ -24,14 +28,60 @@ def entry():
     return sim.step, (sim.reset(), Actions.zeros((BATCH,), device="cuda"))
 
 
-if __name__ == "__main__":
+def dryrun_multichip(n_devices: int, device="cuda") -> float:
+    """Shard a tiny batch (2 envs an entry) of the committed arena map (the
+    JAX dry run's test.gmap needs the reference assets) over an n-entry
+    mesh, run one step of every shard and reduce the mean player height
+    over the whole batch. The entries are `device` n times on the CPU; on
+    CUDA they are the visible cards in turn, so one card holds every shard
+    of a one-card machine. Prints the JAX dry run's line and returns the
+    metric."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("entry: no CUDA device", file=sys.stderr)
-        sys.exit(2)
+    from c_game_engine_tpu_torch.core.actions import Actions
+    from c_game_engine_tpu_torch.models.sim import load_named_map
+    from c_game_engine_tpu_torch.parallel.mesh import gather_states, make_mesh, shard_sim
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        devices = [torch.device("cuda", i % count) for i in range(n_devices)] if count else []
+    else:
+        devices = [device] * n_devices
+    mesh = make_mesh(devices=devices)
+    cmap = load_named_map("arena", mesh[0])
+    batch = 2 * n_devices
+    _, states, step_fn = shard_sim(cmap, batch, mesh)
+    states = step_fn(states, Actions.zeros((batch,), device=mesh[0]))
+    final = gather_states(states)
+    # the metric's reduction crosses the mesh (the JAX dry run's collective)
+    metric = float(final.player.pos[:, 1].mean())
+    if int(final.tick.min()) != 1 or final.tick.shape != (batch,):
+        raise AssertionError(f"dryrun_multichip({n_devices}): the step did not advance {batch} envs by one tick")
+    print(f"dryrun_multichip({n_devices}): ok, metric={metric:.4f}")
+    return metric
+
+
+def main(argv) -> int:
+    import torch
+
+    device = "cpu" if "--cpu" in argv else "cuda"
+    if device == "cuda" and not torch.cuda.is_available():
+        print("entry: no CUDA device (pass --cpu for the dry run on the CPU)", file=sys.stderr)
+        return 2
+    if "--dryrun" in argv:
+        dryrun_multichip(int(argv[argv.index("--dryrun") + 1]), device)
+        return 0
+    if device == "cpu":
+        print("entry: entry() is the CUDA graph step; only --dryrun runs on the CPU", file=sys.stderr)
+        return 2
     fn, args = entry()
     out = fn(*args)
     torch.cuda.synchronize()
     assert int(out.tick[0]) == 1 and bool(torch.isfinite(out.player.pos).all())
     print("entry(): ok")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

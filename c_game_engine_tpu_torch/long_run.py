@@ -1,16 +1,17 @@
-"""Checkpointed long run on one GPU (counterpart of examples/long_run.py).
+"""Checkpointed long run (counterpart of examples/long_run.py).
 
     python3 -m c_game_engine_tpu_torch.long_run [map] [total_ticks] [segment]
 
 (defaults: arena, 1200 ticks, segments of 300; CGE_BATCH envs, default
-512). Runs segments of the map's tick graph (models/sim.py::rollout) with
+512). The env axis is sharded over the mesh (parallel/mesh.py; every
+visible card, or the CPU with `--cpu`); each shard runs segments of the
+map's tick graph (models/sim.py::rollout; the eager tick on the CPU) with
 a per-env walk-and-turn stream (strafe sin(0.37 i), hold W, turn
-0.01 cos(0.11 i) rad a tick, i the env index), checkpoints the whole state
-after each segment (utils/checkpoint.py), and ends with the bitwise resume
-proof: restore the second-to-last checkpoint, run one segment again, and
-compare every leaf with the uninterrupted run's final state with
-`torch.equal`. `--cpu` runs the eager tick on the CPU. The sharded mesh of
-the JAX script waits for a port of parallel/mesh.py.
+0.01 cos(0.11 i) rad a tick, i the env index). The whole state is
+checkpointed after each segment (utils/checkpoint.py), and the run ends
+with the bitwise resume proof: restore the second-to-last checkpoint, run
+one segment again, and compare every leaf with the uninterrupted run's
+final state with `torch.equal`.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 
 from c_game_engine_tpu_torch.core.actions import Actions
 from c_game_engine_tpu_torch.core.state import tree_leaves
-from c_game_engine_tpu_torch.models.sim import make_sim
+from c_game_engine_tpu_torch.models.sim import load_named_map
+from c_game_engine_tpu_torch.parallel.mesh import gather_states, make_mesh, rollout_shards, shard_sim, split
 from c_game_engine_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -40,23 +42,28 @@ def walk_and_turn(ticks: int, batch: int, device) -> Actions:
 
 
 def run(map_name="arena", total_ticks=1200, segment=300, batch=512, device="cuda", ckdir=None, log=print):
-    """Run, checkpoint and prove the resume; returns a summary dict. Raises
-    if the replayed segment differs from the uninterrupted run."""
+    """Run, checkpoint and prove the resume over make_mesh() (every card;
+    `[device]` on the CPU); returns a summary dict. Raises if the replayed
+    segment differs from the uninterrupted run."""
     if total_ticks < 2 * segment or total_ticks % segment:
         raise ValueError(f"total_ticks {total_ticks} must be a multiple of segment {segment}, at least two")
-    sim = make_sim(map_name, batch, jit=torch.device(device).type == "cuda", device=device)
+    device = torch.device(device)
+    mesh = make_mesh() if device.type == "cuda" else make_mesh(devices=[device])
+    log(f"mesh: {len(mesh)} device(s) ({', '.join(str(d) for d in mesh)})")
+    cmap = load_named_map(map_name, mesh[0])
+    cmaps, states, _ = shard_sim(cmap, batch, mesh)
+    streams = split(walk_and_turn(segment, batch, mesh[0]), mesh, axis=1)
     ckdir = Path(ckdir or tempfile.mkdtemp(prefix="cge_longrun_"))
-    acts = walk_and_turn(segment, batch, device)
-    state = sim.reset()
     t0 = time.perf_counter()
     for done in range(segment, total_ticks + 1, segment):
-        state = sim.rollout(state, acts)
+        states = rollout_shards(cmaps, states, streams)
+        state = gather_states(states)
         save_checkpoint(ckdir / f"ck_{done:08d}.npz", state)
         rate = batch * done / (time.perf_counter() - t0)
         log(f"tick {done}/{total_ticks}  {rate:,.0f} env-steps/s  checkpoint -> ck_{done:08d}.npz")
 
     prev = ckdir / f"ck_{total_ticks - segment:08d}.npz"
-    replay = sim.rollout(load_checkpoint(prev, state), acts)
+    replay = gather_states(rollout_shards(cmaps, split(load_checkpoint(prev, state), mesh), streams))
     leaves = list(zip(tree_leaves(state), tree_leaves(replay)))
     differ = [name for (name, a), (_, b) in leaves if not torch.equal(a, b)]
     if differ:
@@ -65,8 +72,9 @@ def run(map_name="arena", total_ticks=1200, segment=300, batch=512, device="cuda
         f"uninterrupted run ({len(leaves)} leaves)")
     mean = state.player.pos.mean(0).tolist()
     log(f"final mean player pos: {[round(x, 3) for x in mean]}")
-    return {"map": sim.name, "batch": batch, "ticks": total_ticks, "segment": segment,
-            "leaves": len(leaves), "env_steps_per_s": batch * total_ticks / (time.perf_counter() - t0),
+    return {"map": cmap.aux["name"], "batch": batch, "ticks": total_ticks, "segment": segment,
+            "devices": len(mesh), "leaves": len(leaves),
+            "env_steps_per_s": batch * total_ticks / (time.perf_counter() - t0),
             "final_state": state, "checkpoints": ckdir}
 
 

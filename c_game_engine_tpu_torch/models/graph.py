@@ -64,14 +64,15 @@ class TickGraph:
                 lambda x: torch.empty((CAP, *x.shape), dtype=x.dtype, device=dev), collect_fn(state)
             )
         gates.prepare(dev)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()  # as torch.cuda.graph does on entry, so the difference below is the pool
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
         self.graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(self.graph, pool=pool), gates.capturing(pool):
-            self._tick()
-        torch.cuda.synchronize(dev)
+        with gates.capturing(pool):  # before the capture begins: it collects garbage
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()  # as torch.cuda.graph does on entry, so the difference below is the pool
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            with torch.cuda.graph(self.graph, pool=pool):
+                self._tick()
+            torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 

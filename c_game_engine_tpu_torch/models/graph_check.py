@@ -6,6 +6,7 @@ tests/test_torch_cuda.py run.
     gate_states(arena, bodies_map, B)    states that open and close each gate
     check_gate_state(kind, ...)          graph against eager on one of them
     check_collect(cmap, batch, ticks)    rollout_collect both ways
+    half_asleep(cmap, batch)             a batch whose body gate a shard splits
 
 Counts are the device counts of utils/counters.py: each kernel's launches
 and the body and stick gates' open ticks.
@@ -42,13 +43,14 @@ def gate_counts() -> dict:
 
 
 def same_leaves(label, a, b) -> int:
-    """Raise unless the two states are equal leaf by leaf, bit for bit;
-    returns the number of leaves."""
+    """Raise unless the two states (of two runs: the graph and the eager
+    loop, or a sharded and an unsharded run) are equal leaf by leaf, bit
+    for bit; returns the number of leaves."""
     pairs = list(zip(tree_leaves(a), tree_leaves(b)))
     differ = [(k, float((x.double() - y.double()).abs().max()) if x.is_floating_point() else int((x != y).sum()))
               for (k, x), (_, y) in pairs if not torch.equal(x, y)]
     if differ:
-        raise AssertionError(f"{label}: the graph and the eager loop differ in {differ}")
+        raise AssertionError(f"{label}: the two runs differ in {differ}")
     return len(pairs)
 
 
@@ -100,6 +102,26 @@ def gate_states(arena, bodies_map, batch):
     return {"stick": (arena, stick, bench_actions(12, batch, "cuda")),
             "audio": (arena, audio, bench_actions(12, batch, "cuda")),
             "bodies": (bodies_map, asleep, bench_actions(24, batch, "cuda"))}
+
+
+def half_asleep(cmap, batch):
+    """arena_bodies at reset for `batch` envs, every body of the back half
+    asleep (sleep counter at SLEEP_AFTER, no velocity): the front half's
+    settling bodies open the body gate for the whole batch, while a shard
+    of the back half keeps it closed until a player wakes a body. On
+    `cmap`'s device."""
+    from c_game_engine_tpu_torch.physics.bodies import SLEEP_AFTER
+
+    st = reset_batch(cmap, batch)
+    a = st.actors
+    dev = a.sleep.device
+    rows = cmap.dyn_slots[cmap.dyn_slots >= 0].long()
+    back = torch.arange(batch, device=dev) >= batch // 2
+    body = torch.isin(torch.arange(a.sleep.shape[1], device=dev), rows)
+    sleep = torch.where(back[:, None] & body[None, :], SLEEP_AFTER, a.sleep).int()
+    still = back[:, None, None]
+    return st.replace(actors=a.replace(sleep=sleep, vel=torch.where(still, 0.0, a.vel),
+                                       omega=torch.where(still, 0.0, a.omega)))
 
 
 def check_gate_state(kind, cmap, state, acts):

@@ -118,15 +118,21 @@ def _graph_step(cmap, state: EnvState, actions: Actions) -> EnvState:
     return tick_graph(cmap, state).run(state, tree_map(lambda x: x[None], actions))[0]
 
 
-def make_sim(map_name: str, batch: int = 4096, jit: bool = True, device="cuda") -> BatchedSim:
-    """BatchedSim on a committed map (c_game_engine_tpu_torch/maps/<name>)
-    or an exported map's .npz path (its .json beside it): the port has no
-    map compiler yet. jit=True steps and rolls out through the CUDA tick
-    graph and raises on a CPU device; jit=False runs the eager tick."""
+def load_named_map(map_name: str, device="cuda"):
+    """A committed map (c_game_engine_tpu_torch/maps/<name>) or an exported
+    map's .npz path (its .json beside it) on `device`: the port has no map
+    compiler yet."""
     path = Path(map_name)
     if path.suffix != ".npz":
         path = MAPS / f"{map_name}.npz"
-    cmap = load_map(path, path.with_suffix(".json"), device)
+    return load_map(path, path.with_suffix(".json"), device)
+
+
+def make_sim(map_name: str, batch: int = 4096, jit: bool = True, device="cuda") -> BatchedSim:
+    """BatchedSim on a map of `load_named_map`. jit=True steps and rolls out
+    through the CUDA tick graph and raises on a CPU device; jit=False runs
+    the eager tick."""
+    cmap = load_named_map(map_name, device)
     if jit and cmap.device.type != "cuda":
         raise ValueError(f"make_sim(jit=True) captures a CUDA graph; device {cmap.device} has none "
                          "(pass jit=False for the eager tick)")

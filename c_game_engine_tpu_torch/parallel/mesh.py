@@ -1,0 +1,120 @@
+"""Multi-device scaling: env-batch data parallelism over a 1-D mesh
+(counterpart of c_game_engine_tpu/parallel/mesh.py).
+
+As in the JAX package, per-env state never crosses devices while stepping
+and only the metrics are reduced, so the port needs no collective: a mesh
+is an ordered list of devices, the env axis is split into equal contiguous
+shards, one per entry, and each shard steps through the port's own
+`rollout` on its device (the map's tick graph on a card, the eager loop on
+the CPU). The same device may appear more than once; a one-card machine
+or the CPU then checks the split.
+
+A shard whose size is a multiple of 128 envs gives the unsharded result
+bit for bit: the capsule kernel's candidate set is per 128-lane block
+(ROADMAP §3 f), so a shard boundary inside a block would change results.
+On several cards each shard's capture and replay run under its card's
+`torch.cuda.device`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from c_game_engine_tpu_torch.core.actions import Actions
+from c_game_engine_tpu_torch.core.state import tree_leaves, tree_map
+from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+
+ENV_AXIS = "env"
+
+
+def make_mesh(n_devices: int | None = None, devices=None) -> list[torch.device]:
+    """The mesh's devices in order: `devices` (the same device may repeat),
+    else every CUDA card; the first `n_devices` of them when given."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices]
+    # "cuda" names the current card, as a tensor's device does
+    devs = [torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
+            for d in devs]
+    if n_devices is not None:
+        devs = devs[:n_devices]
+    if not devs:
+        raise ValueError("an empty mesh: no CUDA device (pass devices=[...] for the CPU)")
+    return devs
+
+
+def _on(device):
+    """The context a shard's work runs in: its card current, else nothing."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def shard_sim(cmap, batch: int, mesh):
+    """Fresh batched state with the env axis split over the mesh. Returns
+    (cmaps, states, step_fn): the map on each entry's device (one copy per
+    distinct device), each entry's [batch / len(mesh)] state, and
+    step_fn(states, actions) -> states, one tick of every shard for a [B]
+    action batch."""
+    n = len(mesh)
+    if batch % n:
+        raise ValueError(f"batch {batch} must divide the mesh of {n}")
+    per_device = {}
+    for dev in mesh:
+        if dev not in per_device:
+            per_device[dev] = cmap if cmap.device == dev else tree_map(lambda x: x.to(dev), cmap)
+    cmaps = [per_device[dev] for dev in mesh]
+    states = []
+    for cm, dev in zip(cmaps, mesh):
+        with _on(dev):
+            states.append(reset_batch(cm, batch // n))
+
+    def step_fn(sts, actions):
+        return rollout_shards(cmaps, sts, [_repeat(a, 1) for a in split(actions, mesh)])
+
+    return cmaps, states, step_fn
+
+
+def split(tree, mesh, axis: int = 0) -> list:
+    """`tree`'s env axis (`axis`) cut into the mesh's equal contiguous
+    shards, each on its entry's device."""
+    n = tree_leaves(tree)[0][1].shape[axis] // len(mesh)
+    return [tree_map(lambda x: x.narrow(axis, i * n, n).to(d), tree) for i, d in enumerate(mesh)]
+
+
+def _repeat(actions: Actions, n_ticks: int) -> Actions:
+    """A [B] action batch as an [n_ticks, B] stream, the same every tick."""
+    return tree_map(lambda x: x.expand(n_ticks, *x.shape), actions)
+
+
+def rollout_shards(cmaps, states, streams) -> list:
+    """Roll every shard through its stream; every shard is launched before
+    anything is read back (nothing here waits for a card)."""
+    out = []
+    for cm, st, acts in zip(cmaps, states, streams):
+        with _on(cm.device):
+            out.append(rollout(cm, st, acts))
+    return out
+
+
+def gather_states(states, device=None):
+    """The shards' states concatenated along the env axis on `device` (the
+    first shard's by default)."""
+    device = device or states[0].tick.device
+    return tree_map(lambda *xs: torch.cat([x.to(device) for x in xs]), states[0], *states[1:])
+
+
+def sharded_rollout(cmap, mesh, batch: int, n_ticks: int, actions: Actions | None = None):
+    """n_ticks of a fresh sharded batch, each env repeating its entry of the
+    [B] `actions` (zeros by default) every tick. Returns (final state on the
+    first entry's device, metrics reduced over the whole batch)."""
+    cmaps, states, _ = shard_sim(cmap, batch, mesh)
+    if actions is None:
+        actions = Actions.zeros((batch,), device=mesh[0])
+    final = gather_states(rollout_shards(cmaps, states, [_repeat(a, n_ticks) for a in split(actions, mesh)]))
+    metrics = {
+        "mean_player_y": final.player.pos[:, 1].mean(),
+        "mean_coins": final.save.coins.float().mean(),
+        "ticks": final.tick[0],
+    }
+    return final, metrics

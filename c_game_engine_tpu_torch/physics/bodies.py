@@ -23,8 +23,14 @@ inside it, the pair-activity gate (`pair_any`, batched.py:955 and :1664).
 `active_ticks` counts the ticks on which the body-activity gate opened
 (K3 launches once on each of them); it is a device count
 (utils/counters.py, "body_gate"), so replays of a captured tick count
-too. The one-hot contractions (`torch.einsum` with d2n,
-ohA, ohB: the JAX package's `_einsum32`) stay exact because TF32 is off
+too. An open gate leaves an env that needed neither stage as the closed
+gate would, so a shard of the batch steps as the whole batch does
+(parallel/mesh.py). For that the pair warm-cache writeback keys on each
+env's own pair activity (`pair_env`), a departure from the JAX package,
+which re-keys every env's cache when any env of the batch has one
+(batched.py:1752-1753; ROADMAP.md §3 i). The one-hot contractions
+(`torch.einsum` with d2n, ohA, ohB: the JAX package's `_einsum32`) stay
+exact because TF32 is off
 (c_game_engine_tpu_torch/__init__.py). The reference's known faults
 (ROADMAP.md §3 e) are kept for parity.
 """
@@ -463,8 +469,10 @@ def step_bodies_batched(cmap, actors, player_pos, player_vel, dt, n_substeps: in
 
     def active():
         counters.bump("body_gate", dev)
-        # batch-global pair-activity gate (batched.py:955)
-        pair_any = gates.read(torch.any(pair_bp & (awake[:, None, :] | awake_nb[None, :, :])))
+        # batch-global pair-activity gate (batched.py:955); pair_env [B] is
+        # each env's own pair activity
+        pair_env = torch.any(pair_bp & (awake[:, None, :] | awake_nb[None, :, :]), dim=1).any(0)
+        pair_any = gates.read(pair_env.any())
         tables = dict(
             n=n, D=D, B=B, P=P, dev=dev, slc=slc, pair_bp=pair_bp, keep_pair=keep_pair,
             o_c=(o_cx, o_cy, o_cz), o_q=(oqx, oqy, oqz, oqw), o_v=(ovx, ovy, ovz), o_inv_m=o_inv_m,
@@ -472,7 +480,7 @@ def step_bodies_batched(cmap, actors, player_pos, player_vel, dt, n_substeps: in
         )
         pr = gates.gate(pair_any, lambda: _pair_gen(cmap, tables), lambda: _pair_zero(D, B, P, dev))
         body = dict(
-            D=D, B=B, P=P, h=h, n_substeps=n_substeps, awake=awake, pair_any=pair_any,
+            D=D, B=B, P=P, h=h, n_substeps=n_substeps, awake=awake, pair_any=pair_any, pair_env=pair_env,
             d_inv_m=d_inv_m, iI=(iIx, iIy, iIz), dh=(dhx, dhy, dhz), dc=(dcx, dcy, dcz), d_mu=d_mu,
             d_verts=d_verts, d_is_box=d_is_box, cc0=(ccx0, ccy0, ccz0), player=(ppx, ppy, ppz, pvx, pvy, pvz),
             d_on_t=d_on_t, pair_bp=pair_bp, pny=pny,
@@ -1038,6 +1046,12 @@ def _bodies_active(cmap, w, pr, carry0, wt_st, wvals_st, wkeys_st):
     wt_act = torch.where(awake, wt_fin, wt_st)
     aw_f2 = awake.float()
     paw2 = (torch.einsum("db,pdb->pb", aw_f2, ohA) + torch.einsum("db,pdb->pb", aw_f2, ohB)) > 0.5
-    wp_act = gates.select(pair_any, torch.where(paw2, wp_fin, wp0), wvals_st[:P])
-    keys_act = gates.select(pair_any, fidx_keys, wkeys_st[:P])
+    # an env without live pair activity keeps its stored keys and values,
+    # as the closed gate does: the batch-global gate of the JAX package
+    # (batched.py:1752-1753) re-keys them when another env of the batch is
+    # active, so an env's cache would depend on its neighbours in the batch
+    # and a shard of the batch would step differently from the whole
+    pair_env = w["pair_env"]
+    wp_act = torch.where(pair_env, torch.where(paw2, wp_fin, wp0), wvals_st[:P])
+    keys_act = torch.where(pair_env, fidx_keys, wkeys_st[:P])
     return (dpx, dpy, dpz, dqx, dqy, dqz, dqw, dvx, dvy, dvz, dwx, dwy, dwz, wt_act, wp_act, keys_act)

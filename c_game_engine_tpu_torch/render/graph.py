@@ -76,14 +76,15 @@ class RenderGraph:
         buffers = dict(tree_leaves(self.state))
         self._buffers = [buffers[k] for k in self.reads]
         gates.prepare(dev)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()  # as torch.cuda.graph does on entry, so the difference below is the pool
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
         self.graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(self.graph, pool=pool), gates.capturing(pool):
-            self.out = fn(self.state)
-        torch.cuda.synchronize(dev)
+        with gates.capturing(pool):  # before the capture begins: it collects garbage
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()  # as torch.cuda.graph does on entry, so the difference below is the pool
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.out = fn(self.state)
+            torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 

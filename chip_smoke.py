@@ -59,9 +59,26 @@ Phases (any failure exits non-zero and prints no result line):
      and once timed (K4 twice per frame batch: pass 1 and the reveal);
      then the same render path on arena_orb (K5 twice per frame batch, K4
      never);
-  7. the entry points: a c_game_engine_tpu_torch.long_run resume proof
-     (40 ticks of 256 envs in segments of 20, bitwise), one
-     c_game_engine_tpu_torch.bench call and one entry() step.
+  7. the platform around the tick: the audio phase (60 graphed ticks x
+     4096 envs of arena with the synthetic sounds of
+     audio/synthetic_sounds.py, the channel tables then filled by
+     `audio_states`, one mix_frame of 800 samples for every env timed
+     against its bound, 64 envs held to the CPU plain path within 1e-5);
+     the mesh phase (parallel/mesh.py::sharded_rollout of arena, 4096 envs
+     x 240 ticks of long_run's per-env stream, and of arena_bodies, 512
+     envs x 60 ticks, over make_mesh() and over two entries of the one
+     card: each equal to the unsharded rollout bit for bit, steps/s of
+     both, 0 host syncs between the shards' launches, the kernels'
+     launches counted); the action stream phase (240 ticks x 4096 envs
+     recorded with core/actions_io.py's ActionRecorder, saved, loaded onto
+     the card unchanged, its replay equal to the original rollout bit for
+     bit);
+  8. the entry points: a c_game_engine_tpu_torch.long_run resume proof
+     over make_mesh() (40 ticks of 256 envs in segments of 20, bitwise),
+     one c_game_engine_tpu_torch.bench call, one entry() step,
+     dryrun_multichip(2) on the card and the demo (30 ticks, 2 frames of
+     arena_lit: a WAV peak above 0, each frame's non-sky coverage at least
+     0.03).
 The render path runs through its CUDA graphs (render/graph.py): on the
 card render_batch and render_with_hud_batch replay one captured graph per
 option set, the reveal overflow a conditional node in it. So phase 3 also
@@ -82,7 +99,8 @@ The last three lines are the card's name and power limit, a JSON object
 with each kernel's launches, error, times and bound (and steps/s of the
 graph and of the eager loop, the graphs, the per-replay figures, frames/s
 of the render graphs and of the eager render, the long run and the
-bench), and {"ok": true, "device": {...}}.
+bench, the audio, mesh, action stream and demo figures), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -101,6 +119,13 @@ BATCH, TICKS = 4096, 240
 # events)
 BODIES_EAGER_TICKS, PROFILE_BODIES_TICKS = 60, 8
 LONG_RUN = ("arena", 40, 20, 256)  # map, ticks, segment, envs
+DEMO = ("arena_lit", 2, 30)  # map, frames, ticks
+# the audio phase: graphed ticks with the synthetic sounds, then one mix of
+# every env, MIX_CHECK_ENVS of them held to the CPU
+MIX_TICKS, MIX_CHECK_ENVS = 60, 64
+# the mesh phase's cells: map, envs, ticks (shards of 2048 and of 256 envs,
+# multiples of K1's 128-lane block)
+MESH = (("arena", 4096, 240), ("arena_bodies", 512, 60))
 # rollout_collect on the graph: more ticks than the graph's action stream
 # holds (models/graph.py::CAP, 240), so it runs in two chunks
 COLLECT_BATCH, COLLECT_TICKS = 256, 250
@@ -852,14 +877,252 @@ def hud_main_path(cmap, bundle, state):
     return counts, dt, dt_eager
 
 
-def entry_points_phase(card):
-    """The entry points around the graph: a long_run resume proof at a small
-    size (LONG_RUN), one bench call (4096 envs x 240 ticks of arena; its
-    card must be this card) and one entry() step."""
+def host_syncs(fn):
+    """(fn(), how many synchronizing CUDA calls it made): torch.cuda's sync
+    debug mode at its warning level, each warning counted. A deliberate
+    sync is counted first, so a count of 0 means none was made."""
+    import warnings
+
     import torch
 
-    from c_game_engine_tpu_torch import bench, long_run
-    from c_game_engine_tpu_torch.entry import entry
+    def counted(f):
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = f()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return out, sum("synchroniz" in str(w.message) for w in seen)
+
+    if counted(lambda: int(torch.ones(1, device="cuda").sum()))[1] < 1:
+        raise AssertionError("host sync count: the sync debug mode did not see a deliberate sync")
+    return counted(fn)
+
+
+def audio_phase(arena, card):
+    """MIX_TICKS graphed ticks of the bench stream on arena at BATCH envs
+    with the synthetic sounds (audio/synthetic_sounds.py), the channel
+    tables then overwritten by `audio_states`; mix_frame of every env's
+    SAMPLES_PER_TICK samples at its listener, timed with CUDA events, and
+    MIX_CHECK_ENVS of the envs held to the CPU plain path on the same
+    inputs (abs and rel 1e-5). The bound: the bytes the function must move
+    (its output written once; the channel tables, the bank's PCM and
+    table, the listeners and the volumes read once) over the memory rate.
+    The [B, C, n, 2] block that the PyTorch formulation gathers is its own
+    intermediate, printed beside it, not in the bound."""
+    import tempfile
+
+    import torch
+
+    from c_game_engine_tpu_torch.audio.bank import SAMPLES_PER_TICK
+    from c_game_engine_tpu_torch.audio.mixer import NUM_CHANNELS, listener_from_state, mix_frame
+    from c_game_engine_tpu_torch.audio.synthetic_sounds import audio_states, with_synthetic_sounds
+    from c_game_engine_tpu_torch.core.state import tree_leaves, tree_map
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cm, bank = with_synthetic_sounds(arena, tmp)
+    st = rollout(cm, reset_batch(cm, BATCH), bench_actions(MIX_TICKS, BATCH, "cuda"))
+    plays = int(st.sound_plays.min())
+    if plays < 2:
+        raise AssertionError(f"audio: {plays} sound plays in {MIX_TICKS} ticks (the first_tick click and the cling)")
+    st = audio_states(st, seed=0)
+    vols = torch.tensor([0.8, 0.6, 1.0, 0.5], device="cuda")
+    pos, quat = listener_from_state(st)
+    mix = lambda: mix_frame(bank, st.audio, pos, quat, vols, SAMPLES_PER_TICK)
+    out = mix()
+    ms = cuda_time(mix, reps=10)
+    sel = torch.arange(0, BATCH, BATCH // MIX_CHECK_ENVS, device="cuda")
+    cpu = lambda x: x[sel].cpu()
+    plain = mix_frame(tree_map(lambda x: x.cpu(), bank), tree_map(cpu, st.audio), cpu(pos), cpu(quat), vols.cpu(),
+                      SAMPLES_PER_TICK)
+    got = out[sel].cpu()
+    err = float((got - plain).abs().max())
+    if out.shape != (BATCH, SAMPLES_PER_TICK, 2) or not torch.allclose(got, plain, atol=1e-5, rtol=1e-5):
+        raise AssertionError(f"audio: mix {tuple(out.shape)} off the CPU plain path by up to {err}")
+    if float(out.abs().max()) <= 0.0:
+        raise AssertionError("audio: the mix is silent")
+    gathered = BATCH * NUM_CHANNELS * SAMPLES_PER_TICK * 2 * 4
+    nbytes = sum(x.numel() * x.element_size() for x in (out, bank.pcm, bank.table, pos, quat, vols,
+                                                         *(leaf for _, leaf in tree_leaves(st.audio))))
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"audio: mix_frame of {BATCH} envs x {NUM_CHANNELS} channels x {SAMPLES_PER_TICK} samples "
+          f"{ms:.4f} ms a mix, bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB moved; the formulation's gathered "
+          f"block {gathered / 1e9:.3f} GB is not counted) on {card}; "
+          f"{MIX_CHECK_ENVS} envs equal the CPU plain path within 1e-5 (max abs error {err:.3g}); "
+          f"{plays} sound plays a env in {MIX_TICKS} ticks", flush=True)
+    return {"envs": BATCH, "samples": SAMPLES_PER_TICK, "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+            "bound_bytes": nbytes, "gathered_bytes": gathered, "max_abs_err": err, "sound_plays_per_env": plays}
+
+
+def mesh_phase(cmaps, card):
+    """MESH's cells over make_mesh() and over a 2-entry mesh of the one
+    card, each env on long_run.walk_and_turn's per-env actions. arena runs
+    sharded_rollout (parallel/mesh.py) from a fresh batch; arena_bodies
+    starts from graph_check.half_asleep, whose back half's bodies sleep,
+    and its two shards must open the body gate on different numbers of
+    ticks (the back shard's stays closed until a player wakes a body). The
+    final state equals the unsharded rollout's bit for bit (this first
+    call captures each shard's graph); then the shards are launched again
+    with their host syncs counted (0), timed, and checked once more, with
+    the kernels' launches counted. Returns ({cell: figures}, {path:
+    counts})."""
+    import torch
+
+    from c_game_engine_tpu_torch.long_run import walk_and_turn
+    from c_game_engine_tpu_torch.models.graph import tick_graph
+    from c_game_engine_tpu_torch.models.graph_check import half_asleep, kernel_counts, same_leaves
+    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.parallel.mesh import (
+        gather_states,
+        make_mesh,
+        rollout_shards,
+        shard_sim,
+        sharded_rollout,
+        split,
+    )
+    from c_game_engine_tpu_torch.utils import counters
+
+    def gate_ticks(fn):
+        torch.cuda.synchronize()
+        counters.reset()
+        fn()
+        torch.cuda.synchronize()
+        return counters.read("body_gate")
+
+    out, paths = {}, {}
+    for name, batch, ticks in MESH:
+        cm = cmaps[name]
+        stream = walk_and_turn(ticks, batch, "cuda")
+        state = reset_batch(cm, batch) if name == "arena" else half_asleep(cm, batch)
+        tick_graph(cm, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = rollout(cm, state, stream)
+        torch.cuda.synchronize()
+        unsharded = batch * ticks / (time.perf_counter() - t0)
+        cell = {"envs": batch, "ticks": ticks, "unsharded_steps_per_s": unsharded}
+        for label, mesh in (("make_mesh", make_mesh()), ("two_on_one_card", make_mesh(devices=["cuda:0"] * 2))):
+            shard_maps = shard_sim(cm, batch, mesh)[0]
+            streams = split(stream, mesh, axis=1)
+            if name == "arena":
+                final, _ = sharded_rollout(cm, mesh, batch, ticks, stream[0])
+            else:
+                final = gather_states(rollout_shards(shard_maps, split(state, mesh), streams))
+            n = same_leaves(f"mesh {name} over {label}", whole, final)
+            gates = ""
+            if name == "arena_bodies":
+                opened = [gate_ticks(lambda: rollout(cm, state, stream))]
+                opened += [gate_ticks(lambda: rollout_shards([m], [s], [a]))
+                           for m, s, a in zip(shard_maps, split(state, mesh), streams)]
+                if len(mesh) > 1 and len(set(opened[1:])) < 2:
+                    raise AssertionError(f"mesh {name} over {label}: body gate open ticks {opened} (whole, "
+                                         "shards): the shards open it alike, so the split is not exercised")
+                cell.setdefault("body_gate_ticks", {})[label] = opened
+                gates = f"; body gate open on {opened[0]} ticks whole, {opened[1:]} in the shards"
+            states = split(state, mesh)
+            start = {}
+
+            def launch():
+                start["t"] = time.perf_counter()
+                return rollout_shards(shard_maps, states, streams)
+
+            counters.reset()
+            parts, syncs = host_syncs(launch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - start["t"]
+            counts = kernel_counts()
+            final = gather_states(parts)
+            same_leaves(f"mesh {name} over {label}, timed", whole, final)
+            want = {"capsule_resolve": ticks * len(mesh), "ray_tris": ticks * len(mesh)}
+            if name == "arena_bodies":
+                want["body_contacts"] = 1
+            low = {k: counts[k] for k, v in want.items() if counts[k] < v}
+            if syncs or low:
+                raise AssertionError(f"mesh {name} over {label}: {syncs} host syncs, launches {counts}")
+            steps = batch * ticks / dt
+            paths[f"mesh_{name}_{label}"] = {"counts": counts, "steps_per_s": steps}
+            cell[label] = {"shards": len(mesh), "steps_per_s": steps, "host_syncs": syncs,
+                           "mean_player_y": float(final.player.pos[:, 1].mean()),
+                           "mean_coins": float(final.save.coins.float().mean()), "launches": counts}
+            print(f"mesh {name}: {len(mesh)} shard(s) of {batch // len(mesh)} envs ({label}) x {ticks} ticks equal "
+                  f"the unsharded rollout bit for bit ({n} leaves){gates}; {steps:.1f} steps/s sharded, "
+                  f"{unsharded:.1f} unsharded on {card}; {syncs} host syncs between the shards' launches; mean "
+                  f"player y {cell[label]['mean_player_y']:.4f}, mean coins {cell[label]['mean_coins']:.4f}; "
+                  f"launches {counts}", flush=True)
+        out[name] = cell
+    return out, paths
+
+
+def action_stream_phase(arena):
+    """TICKS x BATCH of long_run.walk_and_turn's stream recorded tick by
+    tick with ActionRecorder, saved as a CGAS file and loaded back onto the
+    card: equal to the recorded stream, and its rollout equal to the
+    original stream's bit for bit. Returns (figures, the replay's kernel
+    launches)."""
+    import tempfile
+
+    import torch
+
+    from c_game_engine_tpu_torch.core.actions_io import ActionRecorder, load_actions, save_actions
+    from c_game_engine_tpu_torch.long_run import walk_and_turn
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts, same_leaves
+    from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+    from c_game_engine_tpu_torch.utils import counters
+
+    stream = walk_and_turn(TICKS, BATCH, "cuda")
+    rec = ActionRecorder()
+    for t in range(TICKS):
+        rec.record(stream[t])
+    recorded = rec.stream()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "walk_and_turn.cgas"
+        t0 = time.perf_counter()
+        save_actions(path, recorded)
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        loaded = load_actions(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for f in ("move", "look", "buttons"):
+        if not torch.equal(getattr(loaded, f), getattr(recorded, f)):
+            raise AssertionError(f"action stream: loaded {f} differs from the recorded one")
+    original = rollout(arena, reset_batch(arena, BATCH), stream)
+    torch.cuda.synchronize()
+    counters.reset()
+    replay = rollout(arena, reset_batch(arena, BATCH), loaded)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    n = same_leaves("action stream replay", original, replay)
+    if counts["capsule_resolve"] < TICKS or counts["ray_tris"] < TICKS:
+        raise AssertionError(f"action stream replay: launches {counts}")
+    print(f"action stream: {TICKS} ticks x {BATCH} envs recorded, saved ({size:,} bytes in {save_s:.3f} s) and "
+          f"loaded onto the card ({load_s:.3f} s) unchanged; its rollout equals the original's bit for bit "
+          f"({n} leaves); launches {counts}", flush=True)
+    return {"ticks": TICKS, "envs": BATCH, "bytes": size, "save_s": save_s, "load_s": load_s}, counts
+
+
+def entry_points_phase(card):
+    """The entry points around the graph: a long_run resume proof at a small
+    size (LONG_RUN) over make_mesh(), one bench call (4096 envs x 240 ticks
+    of arena; its card must be this card), one entry() step,
+    dryrun_multichip(2) on the card and the demo (DEMO: arena_lit, the
+    single-env step, a 160 x 160 HUD frame every ticks // frames ticks, the
+    mix of every tick): its WAV's peak above 0 (the first_tick click),
+    each frame's non-sky coverage at least 0.03, its tick count. Returns
+    (figures, the demo's kernel launches)."""
+    import tempfile
+
+    import torch
+
+    from c_game_engine_tpu_torch import bench, demo, long_run
+    from c_game_engine_tpu_torch.entry import dryrun_multichip, entry
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
+    from c_game_engine_tpu_torch.utils import counters
 
     name, total, segment, batch = LONG_RUN
     run = long_run.run(name, total, segment, batch, "cuda", ROOT / "build" / "long_run",
@@ -873,8 +1136,31 @@ def entry_points_phase(card):
     if int(out.tick[0]) != 1 or not bool(torch.isfinite(out.player.pos).all()) or out.tick.shape != (256,):
         raise AssertionError("entry(): the graphed step did not advance 256 envs by one finite tick")
     print("entry(): ok, one graphed tick of 256 envs on arena", flush=True)
-    return {"long_run": {k: run[k] for k in ("map", "batch", "ticks", "segment", "leaves", "env_steps_per_s")},
-            "bench": b}
+    dry = dryrun_multichip(2)
+    if not torch.isfinite(torch.tensor(dry)):
+        raise AssertionError(f"dryrun_multichip(2): metric {dry}")
+
+    map_name, frames, ticks = DEMO
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        counters.reset()
+        d = demo.run(tmp, map_name, frames, ticks, "cuda", log=lambda line: print(f"demo: {line}", flush=True))
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        written = d["image"].stat().st_size > 0 and d["wav"].stat().st_size > 44
+    covs = [coverage(f) for f in d["frames"]]
+    if (d["ticks"] != ticks or len(covs) != frames or min(covs) < 0.03 or not d["peak"] > 0 or not written
+            or counts["capsule_resolve"] < ticks or counts["ray_tris"] < ticks):
+        raise AssertionError(f"demo: tick {d['ticks']}, coverage {covs}, peak {d['peak']}, written {written}, "
+                             f"launches {counts}")
+    print(f"demo {map_name}: {ticks} ticks, {frames} frames (non-sky coverage {[round(c, 4) for c in covs]}), "
+          f"WAV peak {d['peak']:.4f} over {d['samples']} samples, {d['play_events']} play events, in "
+          f"{d['seconds']:.2f} s on {card}; launches {counts}", flush=True)
+    demo_out = {"map": map_name, "ticks": ticks, "frames": frames, "coverage": covs, "peak": d["peak"],
+                "play_events": d["play_events"], "seconds": d["seconds"]}
+    return {"long_run": {k: run[k] for k in ("map", "batch", "ticks", "segment", "devices", "leaves",
+                                             "env_steps_per_s")},
+            "bench": b, "dryrun_multichip_metric": dry, "demo": demo_out}, counts
 
 
 def main() -> int:
@@ -983,7 +1269,13 @@ def main() -> int:
           f"{RENDER_BATCH / dt:.1f} frames/s through the graph (eager {dt_eager:.4f} s = "
           f"{RENDER_BATCH / dt_eager:.1f}); launches {counts}", flush=True)
 
-    extras = entry_points_phase(card)
+    audio = audio_phase(arena, card)
+    mesh, mesh_paths = mesh_phase({"arena": arena, "arena_bodies": bodies_map}, card)
+    by_path.update(mesh_paths)
+    actions, counts = action_stream_phase(arena)
+    by_path["action_replay"] = {"counts": counts}
+    extras, counts = entry_points_phase(card)
+    by_path["demo"] = {"counts": counts}
     for cm, name in ((arena, "arena"), (bodies_map, "arena_bodies")):
         for (batch, collects), g in cm.graphs.items():
             print(f"graph {name} x {batch}{' (collect)' if collects else ''}: capture {g.capture_s:.2f} s, "
@@ -1020,7 +1312,7 @@ def main() -> int:
                           p: {k: v[k] for k in ("host_syncs_per_tick", "memcpy_htod_per_tick", "memcpy_dtoh_per_tick",
                                                 "device_ms_per_tick", "wall_ms_per_tick", "busy_share",
                                                 "host_per_tick")} for p, v in profiles.items()},
-                      **extras}))
+                      "audio": audio, "mesh": mesh, "action_stream": actions, **extras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -13,7 +13,14 @@ package, on the CPU.
     per-block candidate sets: one call from each of a few states (a mixed
     batch of falling, resting, sliding, pushed and held bodies; everything
     asleep; a lone awake body with no pair): 1e-4 on poses and velocities,
-    sleep counters and warm keys exact.
+    sleep counters and warm keys exact. The one departure (ROADMAP.md §3 i):
+    the mixed batch's frozen lanes 6-7 keep their pair warm cache, where
+    the JAX package's batch-global gate re-keys it because lanes 0-5 are
+    active; those two leaves of lanes 6-7 are held at the same bars to the
+    JAX package stepping the frozen lanes as a batch of their own, and a
+    second tick, with lanes 6-7 woken onto a warm cache with an entry the
+    JAX re-key drops, holds every leaf of every lane to the JAX package's
+    second tick.
 (c) a rollout of `arena_bodies` at B=128 on one stream (bench.py's, with
     a pick-up, carry and drop of a physbox) against the JAX XLA rollout,
     checked at the drop and at the end: the bars of
@@ -226,7 +233,16 @@ def _scenarios(jc, rows):
     return {"mixed": mixed, "asleep": asleep, "lone": lone}
 
 
-def test_step_bodies_matches_pallas_path(small, monkeypatch):
+NAMES = ("pos", "quat", "vel", "omega", "sleep", "warm_n", "warm_pair", "warm_pair_idx")
+FROZEN = [6, 7]  # the mixed batch's frozen lanes
+
+
+@pytest.fixture(scope="module")
+def steps(small):
+    """(jax_step, port_step): one rigid-body step of a numpy state on each
+    side, as numpy leaves in NAMES order. The JAX one runs with K3 in
+    interpret mode; the calling test forces _use_pallas on, so both sides
+    take the same per-block candidate sets."""
     import jax
     from jax.experimental.pallas import tpu as pltpu
 
@@ -234,24 +250,66 @@ def test_step_bodies_matches_pallas_path(small, monkeypatch):
     from c_game_engine_tpu_torch.core.state import state_from_numpy
     from c_game_engine_tpu_torch.physics import bodies
 
-    jc, tc, rows = small
-    monkeypatch.setattr(jb, "_use_pallas", lambda: True)
+    jc, tc, _ = small
     f = jax.jit(lambda a, pp, pv: jb.step_bodies_batched(jc, a, pp, pv, DT))
-    names = ("pos", "quat", "vel", "omega", "sleep", "warm_n", "warm_pair", "warm_pair_idx")
+
+    def jax_step(st):
+        with pltpu.force_tpu_interpret_mode():
+            return [np.asarray(x) for x in f(st.actors, st.player.pos, st.player.vel)]
+
+    def port_step(st):
+        ts = state_from_numpy(st, tc)
+        return [x.numpy() for x in bodies.step_bodies_batched(tc, ts.actors, ts.player.pos, ts.player.vel, DT)]
+
+    return jax_step, port_step
+
+
+def _hold(name, P, J, lanes=slice(None), keys=NAMES):
+    """The port's leaves P against the JAX package's J on `lanes`: sleep
+    counters and warm keys exact, every other leaf 1e-4."""
+    for k, j, p in zip(NAMES, J, P):
+        if k not in keys:
+            continue
+        assert p.dtype == j.dtype and p.shape == j.shape, (name, k)
+        p, j = p[lanes], j[lanes]
+        if k in ("sleep", "warm_pair_idx"):
+            np.testing.assert_array_equal(p, j, err_msg=f"{name} {k}")
+        else:
+            np.testing.assert_allclose(p, j, atol=1e-4, rtol=0, err_msg=f"{name} {k}")
+
+
+def _lanes(st, idx):
+    import jax
+
+    return jax.tree.map(lambda x: x[idx], st)
+
+
+def test_step_bodies_matches_pallas_path(small, steps, monkeypatch):
+    import c_game_engine_tpu.physics.batched as jb
+    from c_game_engine_tpu_torch.physics import bodies
+
+    jc, _, rows = small
+    jax_step, port_step = steps
+    monkeypatch.setattr(jb, "_use_pallas", lambda: True)
     opened = []
     for name, st in _scenarios(jc, rows).items():
-        with pltpu.force_tpu_interpret_mode():
-            J = [np.asarray(x) for x in f(st.actors, st.player.pos, st.player.vel)]
-        ts = state_from_numpy(st, tc)
+        J = jax_step(st)
         before = bodies.active_ticks
-        P = [x.numpy() for x in bodies.step_bodies_batched(tc, ts.actors, ts.player.pos, ts.player.vel, DT)]
+        P = port_step(st)
         opened.append(bodies.active_ticks - before)
-        for k, j, p in zip(names, J, P):
-            assert p.dtype == j.dtype and p.shape == j.shape, (name, k)
-            if k in ("sleep", "warm_pair_idx"):
-                np.testing.assert_array_equal(p, j, err_msg=f"{name} {k}")
-            else:
-                np.testing.assert_allclose(p, j, atol=1e-4, rtol=0, err_msg=f"{name} {k}")
+        if name != "mixed":
+            _hold(name, P, J)
+            continue
+        active = [k for k in range(8) if k not in FROZEN]
+        _hold(name, P, J, lanes=active)
+        _hold(name, P, J, keys=NAMES[:6])
+        # the frozen lanes have no live pair: the port keeps their pair
+        # cache, as the JAX package does for them in a batch of their own
+        # (a shard of frozen lanes), where its batch-global gate re-keys it
+        # because lanes 0-5 are active
+        alone = jax_step(_lanes(st, FROZEN * 4))
+        _hold(f"{name} frozen lanes alone", [p[FROZEN] for p in P], [a[:2] for a in alone])
+        assert (J[7][FROZEN] != st.actors.warm_pair_idx[FROZEN]).any()
         if name == "mixed":
             moved = np.abs(J[0] - st.actors.pos)[:, rows].max(-1)
             # the falling, sliding, pushed, held and shoved lanes moved; the
@@ -260,6 +318,47 @@ def test_step_bodies_matches_pallas_path(small, monkeypatch):
             assert (moved[6:] == 0).all()
             assert (J[7] >= 0).any()  # pair slots were matched and written
     assert opened == [1, 0, 1]  # the body gate: open, shut (idle branch), open
+
+
+def test_frozen_lanes_wake_like_jax(small, steps, monkeypatch):
+    """The tick on which the port and the JAX package part in the frozen
+    lanes' pair cache (the port keeps it; the JAX package re-keys it onto
+    the lanes' pair candidates because other lanes are active), then a
+    tick with lanes 6-7 woken, each side from its own state: every leaf of
+    every lane meets the parity test's bars, the pair caches included.
+    The frozen lanes start on a warm cache: lane 1's (the same stack at
+    rest) after one JAX tick, plus one entry whose key is no candidate of
+    theirs, which the JAX re-key drops and the port keeps."""
+    import c_game_engine_tpu.physics.batched as jb
+
+    jc, _, rows = small
+    jax_step, port_step = steps
+    monkeypatch.setattr(jb, "_use_pallas", lambda: True)
+    st = _scenarios(jc, rows)["mixed"]
+    warm, keys = (x[1] for x in jax_step(st)[6:])
+    live = int((keys >= 0).sum())
+    assert 0 < live < keys.shape[0] and (warm[:live] != 0).any()
+    stale = next(k for k in range(jc.dyn_slots.shape[0] * jc.num_actors) if k not in keys)
+    wp, wpi = np.array(st.actors.warm_pair), np.array(st.actors.warm_pair_idx)
+    wp[FROZEN], wpi[FROZEN] = warm, keys
+    wp[FROZEN, live], wpi[FROZEN, live] = 0.75, stale
+    st = st.replace(actors=st.actors.replace(warm_pair=wp, warm_pair_idx=wpi))
+
+    J1, P1 = jax_step(st), port_step(st)
+    _hold("divergent tick", P1, J1, keys=NAMES[:6])
+    np.testing.assert_array_equal(P1[7][FROZEN], wpi[FROZEN])
+    np.testing.assert_array_equal(J1[7][FROZEN, :live], wpi[FROZEN, :live])
+    assert (J1[7][FROZEN, live] == -1).all()  # the JAX re-key dropped the stale entry
+
+    def woken(L):
+        sleep = L[4].copy()
+        sleep[np.ix_(FROZEN, rows)] = 0
+        return st.replace(actors=st.actors.replace(**dict(zip(NAMES, [*L[:4], sleep, *L[5:]]))))
+
+    J2, P2 = jax_step(woken(J1)), port_step(woken(P1))
+    _hold("woken tick", P2, J2)
+    # the woken lanes solved their pairs from the warm cache
+    assert (J2[6][FROZEN, :live] != J1[6][FROZEN, :live]).any()
 
 
 # ------------------------------------------------ (c) arena_bodies rollout

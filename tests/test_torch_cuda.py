@@ -15,7 +15,9 @@ the captured tick graph is held to the eager loop bit for bit, on the
 scripted streams, on the gate states and through rollout_collect
 (models/graph_check.py); the render graphs to the eager render bit for
 bit with the reveal overflow gate closed and open
-(render/graph_check.py), and each render option on the card to the CPU.
+(render/graph_check.py), and each render option on the card to the CPU;
+the PCM mix on the card to the CPU plain path on the same inputs (1e-5),
+and two mesh shards on the one card to the unsharded rollout, bit for bit.
 The helpers are imported as top-level modules of tests/ (pytest puts the
 directory on sys.path): where an installed package named `tests` exists,
 it hides the directory as a package.
@@ -414,3 +416,45 @@ def test_render_options_on_card_match_cpu(cuda, label):
         frames.append(out.cpu())
     err = (frames[0] - frames[1]).abs().amax(-1)
     assert float((err > 1 / 255).float().mean()) <= 0.002
+
+
+def test_mix_frame_on_card_matches_cpu(cuda, arena, tmp_path):
+    """mix_frame of 256 envs x 800 samples on the card, the channel tables
+    filled by `audio_states` after 30 graphed ticks with the synthetic
+    sounds, against the CPU plain path on the same inputs: abs and rel
+    1e-5 (the channel sum reduces in another order)."""
+    from c_game_engine_tpu_torch.audio.mixer import listener_from_state, mix_frame
+    from c_game_engine_tpu_torch.audio.synthetic_sounds import audio_states, with_synthetic_sounds
+    from c_game_engine_tpu_torch.core.state import tree_map
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+
+    cm, bank = with_synthetic_sounds(arena(cuda), tmp_path)
+    st = audio_states(rollout(cm, reset_batch(cm, 256), bench_actions(30, 256, cuda)), seed=1)
+    vols = torch.tensor([0.8, 0.6, 1.0, 0.5])
+    pos, quat = listener_from_state(st)
+    card = mix_frame(bank, st.audio, pos, quat, vols.to(cuda)).cpu()
+    cpu_bank = tree_map(lambda x: x.cpu(), bank)
+    plain = mix_frame(cpu_bank, tree_map(lambda x: x.cpu(), st.audio), pos.cpu(), quat.cpu(), vols)
+    assert card.shape == (256, 800, 2) and float(card.abs().max()) > 0.1
+    torch.testing.assert_close(card, plain, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["arena", "arena_bodies"])
+def test_two_shard_mesh_on_card_matches_unsharded(cuda, name):
+    """Two 128-env shards on the one card (parallel/mesh.py) against the
+    unsharded 256-env rollout, both through the tick graph, 30 ticks of a
+    per-env stream: every leaf bit for bit. arena_bodies starts with the
+    back half's bodies asleep, so the second shard's body gate stays
+    closed while the whole batch's opens."""
+    from c_game_engine_tpu_torch.models.graph_check import same_leaves
+    from c_game_engine_tpu_torch.models.sim import load_named_map, reset_batch, rollout
+    from c_game_engine_tpu_torch.parallel.mesh import gather_states, make_mesh, rollout_shards, split
+    from torch_mesh_inputs import half_asleep, per_env_stream
+
+    cm = load_named_map(name, cuda)
+    state = reset_batch(cm, 256) if name == "arena" else half_asleep(cm, 256)
+    acts = per_env_stream(30, 256, seed=7, device=cuda)
+    whole = rollout(cm, state, acts)
+    mesh = make_mesh(devices=[cuda, cuda])
+    parts = gather_states(rollout_shards([cm, cm], split(state, mesh), split(acts, mesh, axis=1)))
+    same_leaves(f"{name} over 2 shards", whole, parts)
