@@ -1,7 +1,12 @@
 """Typed decoders for the shipped `.g*` asset payloads (counterpart of
-c_game_engine_tpu/assets/codecs.py). Only the sound decoder is ported:
-`decode_gtex`, `decode_gmdl`, `decode_gmtl` and `decode_gfon` come with
-the compiler and the app layer."""
+c_game_engine_tpu/assets/codecs.py), host side, numpy:
+
+  .gtex  engine/src/assets/TextureLoader.c:70-140 (w, h u64; filter,
+         repeat, mipmaps, pixelFormat u8; RGBA8 or RGBA16F pixels)
+  .gfon  engine/src/assets/FontLoader.c:79-110
+  .gsnd  a whole WAV file
+
+`decode_gmdl` and `decode_gmtl` come with the compiler (ROADMAP §1 item 7)."""
 
 from __future__ import annotations
 
@@ -13,7 +18,88 @@ from pathlib import Path
 import numpy as np
 
 from c_game_engine_tpu_torch.assets.container import AssetType, read_asset
-from c_game_engine_tpu_torch.assets.reader import PayloadError
+from c_game_engine_tpu_torch.assets.reader import PayloadError, Reader
+
+
+@dataclass
+class Texture:
+    width: int
+    height: int
+    filter: bool
+    repeat: bool
+    mipmaps: bool
+    pixels: np.ndarray  # [H, W, 4] float32 in [0,1] (RGBA8 normalized or RGBA16F)
+
+
+def decode_gtex(path: str | Path) -> Texture:
+    asset = read_asset(path)
+    if asset.type != AssetType.TEXTURE:
+        raise PayloadError(f"{path}: not a texture asset")
+    r = Reader(asset.data)
+    w, h = r.u64(), r.u64()
+    filt, repeat, mipmaps = r.u8() != 0, r.u8() != 0, r.u8() != 0
+    pixel_format = r.u8()
+    if pixel_format == 0:  # RGBA8
+        px = np.frombuffer(r.raw(w * h * 4), dtype=np.uint8).reshape(h, w, 4).astype(np.float32) / 255.0
+    else:  # RGBA16F
+        px = np.frombuffer(r.raw(w * h * 8), dtype=np.float16).reshape(h, w, 4).astype(np.float32)
+    return Texture(w, h, filt, repeat, mipmaps, px)
+
+
+def checkerboard_fallback(size: int = 64) -> Texture:
+    """Magenta/black checkerboard, the reference's missing-texture image
+    (TextureLoader.c:49-70)."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    cell = ((xx // (size // 2)) + (yy // (size // 2))) % 2
+    px = np.zeros((size, size, 4), dtype=np.float32)
+    px[..., 0] = cell
+    px[..., 2] = cell
+    px[..., 3] = 1.0
+    return Texture(size, size, False, True, False, px)
+
+
+@dataclass
+class Font:
+    texture: str
+    width: int
+    texture_height: int
+    baseline: int
+    char_spacing: int
+    line_spacing: int
+    space_width: int
+    default_size: int
+    uppercase_only: bool
+    chars: str
+    widths: np.ndarray  # [nchars] u8
+    start_uvs: np.ndarray  # [nchars] f32
+    end_uvs: np.ndarray  # [nchars] f32
+
+
+def decode_gfon(path: str | Path, texture_width: int | None = None) -> Font:
+    """Decode a bitmap font. UV tables follow FontLoader.c:108-119 (per-char
+    start/end U from the glyph index and the texture width; pass
+    `texture_width` to reproduce the end-UV inset exactly)."""
+    asset = read_asset(path)
+    if asset.type != AssetType.FONT:
+        raise PayloadError(f"{path}: not a font asset")
+    r = Reader(asset.data)
+    # FontLoader.c:79-107
+    width, texture_height, baseline, char_spacing = r.u8(), r.u8(), r.u8(), r.u8()
+    line_spacing, space_width, default_size = r.u8(), r.u8(), r.u8()
+    uppercase_only = r.u8() != 0
+    texture = "texture/" + r.string() + ".gtex"
+    n = r.u8()
+    chars = []
+    widths = np.zeros(n, dtype=np.uint8)
+    for i in range(n):
+        chars.append(chr(r.u8()))
+        widths[i] = r.u8()
+    idx = np.arange(n, dtype=np.float64)
+    start_uvs = (idx / n).astype(np.float32)
+    inset = 1.0 / texture_width if texture_width else 0.0
+    end_uvs = ((idx + 1) / n - inset).astype(np.float32)
+    return Font(texture, width, texture_height, baseline, char_spacing, line_spacing, space_width, default_size,
+                uppercase_only, "".join(chars), widths, start_uvs, end_uvs)
 
 
 @dataclass

@@ -29,10 +29,10 @@ def entry():
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> float:
-    """Shard a tiny batch (2 envs an entry) of the committed arena map (the
-    JAX dry run's test.gmap needs the reference assets) over an n-entry
-    mesh, run one step of every shard and reduce the mean player height
-    over the whole batch. The entries are `device` n times on the CPU; on
+    """Shard a small batch (128 envs an entry, the least shard_sim takes)
+    of the committed arena map (the JAX dry run's test.gmap needs the
+    reference assets) over an n-entry mesh, run one step of every shard
+    and reduce the mean player height over the whole batch. The entries are `device` n times on the CPU; on
     CUDA they are the visible cards in turn, so one card holds every shard
     of a one-card machine. Prints the JAX dry run's line and returns the
     metric."""
@@ -40,7 +40,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> float:
 
     from c_game_engine_tpu_torch.core.actions import Actions
     from c_game_engine_tpu_torch.models.sim import load_named_map
-    from c_game_engine_tpu_torch.parallel.mesh import gather_states, make_mesh, shard_sim
+    from c_game_engine_tpu_torch.parallel.mesh import LANE_BLOCK, gather_states, make_mesh, shard_sim
 
     device = torch.device(device)
     if device.type == "cuda":
@@ -50,7 +50,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> float:
         devices = [device] * n_devices
     mesh = make_mesh(devices=devices)
     cmap = load_named_map("arena", mesh[0])
-    batch = 2 * n_devices
+    batch = LANE_BLOCK * n_devices
     _, states, step_fn = shard_sim(cmap, batch, mesh)
     states = step_fn(states, Actions.zeros((batch,), device=mesh[0]))
     final = gather_states(states)

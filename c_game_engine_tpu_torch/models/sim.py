@@ -70,6 +70,12 @@ def rollout(cmap, state: EnvState, actions: Actions) -> EnvState:
     return rollout_eager(cmap, state, actions)
 
 
+def step_one(cmap, state: EnvState, actions: Actions) -> EnvState:
+    """One tick of a batch: `rollout` of the one-row stream `actions`
+    [B, ...] (the map's tick graph on a card, step_batch on the CPU)."""
+    return rollout(cmap, state, tree_map(lambda x: x[None], actions))
+
+
 def rollout_collect_eager(cmap, state: EnvState, actions: Actions, collect_fn):
     """rollout_collect tick by tick in Python."""
     rows = []
@@ -111,13 +117,6 @@ class BatchedSim:
         return self.cmap.aux["name"] if self.cmap.aux else "map"
 
 
-def _graph_step(cmap, state: EnvState, actions: Actions) -> EnvState:
-    """One tick through the map's tick graph."""
-    from c_game_engine_tpu_torch.models.graph import tick_graph
-
-    return tick_graph(cmap, state).run(state, tree_map(lambda x: x[None], actions))[0]
-
-
 def load_named_map(map_name: str, device="cuda"):
     """A committed map (c_game_engine_tpu_torch/maps/<name>) or an exported
     map's .npz path (its .json beside it) on `device`: the port has no map
@@ -136,6 +135,6 @@ def make_sim(map_name: str, batch: int = 4096, jit: bool = True, device="cuda") 
     if jit and cmap.device.type != "cuda":
         raise ValueError(f"make_sim(jit=True) captures a CUDA graph; device {cmap.device} has none "
                          "(pass jit=False for the eager tick)")
-    step, roll = (_graph_step, rollout) if jit else (step_batch, rollout_eager)
+    step, roll = (step_one, rollout) if jit else (step_batch, rollout_eager)
     return BatchedSim(cmap=cmap, batch=batch, reset=lambda: reset_batch(cmap, batch),
                       step=functools.partial(step, cmap), rollout=functools.partial(roll, cmap))

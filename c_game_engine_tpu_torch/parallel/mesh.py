@@ -9,11 +9,13 @@ shards, one per entry, and each shard steps through the port's own
 the CPU). The same device may appear more than once; a one-card machine
 or the CPU then checks the split.
 
-A shard whose size is a multiple of 128 envs gives the unsharded result
-bit for bit: the capsule kernel's candidate set is per 128-lane block
-(ROADMAP §3 f), so a shard boundary inside a block would change results.
-On several cards each shard's capture and replay run under its card's
-`torch.cuda.device`.
+A mesh of more than one entry takes shards of a multiple of 128 envs
+only, and `shard_sim` refuses any other: the capsule kernel's candidate
+set is per 128-lane block (fault f of the reference, ROADMAP §3 f, which
+the plain CPU version copies), so a shard boundary inside a block would
+change results on the card and on the CPU alike. Such shards give the
+unsharded result bit for bit. On several cards each shard's capture and
+replay run under its card's `torch.cuda.device`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from c_game_engine_tpu_torch.core.state import tree_leaves, tree_map
 from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
 
 ENV_AXIS = "env"
+LANE_BLOCK = 128  # the capsule kernel's lane block (ops/capsule_resolve.py::BLK)
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> list[torch.device]:
@@ -51,7 +54,8 @@ def _on(device):
 
 
 def shard_sim(cmap, batch: int, mesh):
-    """Fresh batched state with the env axis split over the mesh. Returns
+    """Fresh batched state with the env axis split over the mesh (shards of
+    a multiple of LANE_BLOCK envs on a mesh of several entries). Returns
     (cmaps, states, step_fn): the map on each entry's device (one copy per
     distinct device), each entry's [batch / len(mesh)] state, and
     step_fn(states, actions) -> states, one tick of every shard for a [B]
@@ -59,6 +63,10 @@ def shard_sim(cmap, batch: int, mesh):
     n = len(mesh)
     if batch % n:
         raise ValueError(f"batch {batch} must divide the mesh of {n}")
+    if n > 1 and (batch // n) % LANE_BLOCK:
+        raise ValueError(f"a shard of {batch // n} envs: a mesh of {n} entries takes shards of a multiple of "
+                         f"{LANE_BLOCK} envs, since the capsule kernel's candidate set is per {LANE_BLOCK}-lane "
+                         "block (fault f, ROADMAP §3) and a shard boundary inside a block changes results")
     per_device = {}
     for dev in mesh:
         if dev not in per_device:

@@ -1,17 +1,18 @@
 """RenderBundle: a map's render-side tensors (counterpart of
 c_game_engine_tpu/render/bundle.py), holding what the render path reads:
 map geometry, the actor model pool, the sky mesh, the texture atlas, the
-lightmap, the HUD assets and the viewmodel mesh. The UI assets (`ui`, the
-widget stack's) are not ported: they go with the app layer.
+lightmap, the HUD assets, the widget stack's assets (`ui`) and the
+viewmodel mesh.
 
 The bundle is built by the JAX package (`build_render_bundle` needs the
 asset resolver and codecs, which stay on that side with the compiler) and
 exported to plain files by `tests/torch_export_map.py`: `<name>_bundle.npz`
 holds the array leaves (the atlas's as `atlas.<field>`, `blocked` as the
 float32 value of each bfloat16 texel, which it holds exactly; the HUD's as
-`hud.<field>`) and `<name>_bundle.json` the static fields. A map without
-the shipped HUD textures, fonts and eraser model has HUD ids of -1 and an
-empty viewmodel, as the JAX bundle has.
+`hud.<field>`, the UI's as `ui.<field>`) and `<name>_bundle.json` the
+static fields. A map without the shipped HUD and interface textures, fonts
+and eraser model has HUD and UI ids of -1 and an empty viewmodel, as the
+JAX bundle has.
 
 On a CUDA device the bundle also keeps the render graphs captured for it
 (`graphs`, render/graph.py).
@@ -34,6 +35,7 @@ import torch
 from c_game_engine_tpu_torch.core.state import load_map
 from c_game_engine_tpu_torch.render.hud import HUD_FIELDS, HudAssets
 from c_game_engine_tpu_torch.render.textures import TextureAtlas
+from c_game_engine_tpu_torch.ui.stack import UI_FIELDS, UiAssets
 
 # the array leaves, in the order of the JAX RenderBundle
 ARRAYS = (
@@ -72,6 +74,7 @@ class RenderBundle:
     sky_uv: torch.Tensor  # [Ts, 3, 2]
     sky_tex: torch.Tensor  # [] i32 (-1 = no sky)
     hud: HudAssets
+    ui: UiAssets  # the widget stack's textures and small font (ui/stack.py)
     # the viewmodel (the first-person item model; the eraser, item 0)
     vm_pos: torch.Tensor  # [Tv, 3, 3]
     vm_uv: torch.Tensor  # [Tv, 3, 2]
@@ -124,6 +127,7 @@ def bundle_from_numpy(leaves: dict, static: dict, cmap) -> RenderBundle:
     return RenderBundle(
         atlas=TextureAtlas(**atlas),
         hud=HudAssets(**{k: t(leaves[f"hud.{k}"]) for k in HUD_FIELDS}),
+        ui=UiAssets(**{k: t(leaves[f"ui.{k}"]) for k in UI_FIELDS}),
         **{k: t(leaves[k]) for k in ARRAYS},
         **soup_rows(leaves["mdl_range"], cmap),
         live_tri_bound=int(static["live_tri_bound"]),

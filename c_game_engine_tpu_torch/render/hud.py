@@ -41,6 +41,27 @@ class HudAssets:
 HUD_FIELDS = tuple(f.name for f in dataclasses.fields(HudAssets))
 
 
+def prefix_sum(x):
+    """Inclusive prefix sum of float x [..., L] along its last axis, added
+    in the order of the JAX package's `jnp.cumsum` on the CPU (XLA splits
+    the scan into blocks of 16: each block summed left to right, the
+    blocks' totals prefix-summed the same way and added to the next
+    block's sums), so glyph positions round as the JAX ones do.
+    torch.cumsum adds in its own order."""
+    n = x.shape[-1]
+    if n <= 16:
+        cols = [x[..., 0]]
+        for k in range(1, n):
+            cols.append(cols[-1] + x[..., k])
+        return torch.stack(cols, -1)
+    nb = -(-n // 16)
+    blocks = torch.nn.functional.pad(x, (0, nb * 16 - n)).reshape(*x.shape[:-1], nb, 16)
+    within = prefix_sum(blocks)
+    carry = prefix_sum(within[..., -1])  # [..., nb]
+    out = torch.cat([within[..., :1, :], within[..., 1:, :] + carry[..., :-1, None]], -2)
+    return out.reshape(*x.shape[:-1], nb * 16)[..., :n]
+
+
 def _frame_axes(frame):
     """The frame's pixel rows [H, 1] and columns [1, W] as float32."""
     fh, fw = frame.shape[-3:-1]
@@ -75,7 +96,7 @@ def draw_number(frame, atlas, hud: HudAssets, value, x0, y0, size, color):
     codes = (digits + ord("0")).long()
     widths = hud.font_widths[codes] * scale
     advances = torch.where(visible, widths + hud.font_spacing * scale, 0.0)
-    offs = torch.cat([torch.zeros_like(advances[:, :1]), torch.cumsum(advances, -1)[:, :-1]], -1)
+    offs = torch.cat([torch.zeros_like(advances[:, :1]), prefix_sum(advances)[:, :-1]], -1)
     return _glyphs(frame, atlas, hud, codes, visible, x0 + offs, widths, y0, size, color)
 
 
@@ -91,7 +112,7 @@ def draw_text(frame, atlas, font, codes, x, y, size, color, halign="left"):
     scale = size / torch.clamp_min(font.font_height, 1.0)
     widths = font.font_widths[ci] * scale
     advances = torch.where(visible, widths + font.font_spacing * scale, 0.0)
-    offs = torch.cat([torch.zeros_like(advances[:, :1]), torch.cumsum(advances, -1)[:, :-1]], -1)
+    offs = torch.cat([torch.zeros_like(advances[:, :1]), prefix_sum(advances)[:, :-1]], -1)
     x0 = x - advances.sum(-1, keepdim=True) * 0.5 if halign == "center" else x
     shown = visible & (font.font_start_u[ci] >= 0)
     return _glyphs(frame, atlas, font, ci, shown, x0 + offs, widths, y, size, color)

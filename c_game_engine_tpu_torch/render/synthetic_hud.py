@@ -1,15 +1,20 @@
-"""Synthetic HUD and viewmodel assets for maps without the shipped ones.
+"""Synthetic HUD, widget and viewmodel assets for maps without the
+shipped ones.
 
-The committed maps are asset-free: their bundles have HUD ids of -1 and an
-empty viewmodel, so render_with_hud draws neither. `synthetic_arrays`
-builds, from numpy only, HUD assets whose coin, blue-coin, crosshair and
-font ids point at procedural textures already in arena_lit's atlas (a
-128-entry font table of start and end U and widths over one texture), and
-a small viewmodel mesh (a box of 12 triangles, item 0) in front of the
-camera. The same arrays go into the JAX bundle (`bundle.replace(...)`) and
-the port's (`with_synthetic_hud`), so the tests and chip_smoke.py draw the
-same HUD frames on both sides. `hud_states` sets per-env values the HUD
-shows (coins, blue coins, crosshair state, the selected item).
+The committed maps are asset-free: their bundles have HUD and UI ids of
+-1 and an empty viewmodel, so render_with_hud draws neither and the menu
+screens draw no widget. `synthetic_arrays` builds, from numpy only, HUD
+assets whose coin, blue-coin, crosshair and font ids point at procedural
+textures already in arena_lit's atlas (a 128-entry font table of start and
+end U and widths over one texture), and a small viewmodel mesh (a box of
+12 triangles, item 0) in front of the camera. `synthetic_ui_arrays` does
+the same for the widget stack's UiAssets: the 14 UITEX_* slots on those
+textures, their pixel sizes from the atlas table, and a small font table
+like the HUD's on another texture. The same arrays go into the JAX bundle
+(`bundle.replace(...)`) and the port's (`with_synthetic_hud`), so the
+tests and chip_smoke.py draw the same HUD and menu frames on both sides.
+`hud_states` sets per-env values the HUD shows (coins, blue coins,
+crosshair state, the selected item).
 """
 
 from __future__ import annotations
@@ -23,6 +28,27 @@ import torch
 YCOIN, BCOIN, CROSSHAIR, FONT, VIEWMODEL = ("texture/actor/coin.gtex", "texture/actor/bluecoin.gtex",
                                             "texture/actor/laser.gtex", "texture/actor/door.gtex",
                                             "texture/floor.gtex")
+
+
+# the texture of each UITEX_* slot (ui/stack.py order), and the small font's
+UI_SLOTS = ("texture/wall.gtex", "texture/actor/door.gtex", "texture/floor.gtex", "texture/wall.gtex",
+            "texture/actor/door.gtex", "texture/floor.gtex", "texture/actor/coin.gtex",
+            "texture/actor/bluecoin.gtex", "texture/actor/coin.gtex", "texture/floor.gtex",
+            "texture/actor/laser.gtex", "texture/sky.gtex", "texture/actor/door.gtex", "texture/actor/coin.gtex")
+SMALL_FONT = "texture/floor.gtex"
+
+
+def _font_table(width_of):
+    """(start U, end U, widths) [128] each: printable ASCII in 16 glyph
+    cells a row of the texture, absent codes -1."""
+    start = np.full(128, -1.0, np.float32)
+    end = np.full(128, -1.0, np.float32)
+    widths = np.zeros(128, np.float32)
+    for code in range(32, 128):
+        start[code] = ((code - 32) % 16) / 16.0
+        end[code] = start[code] + 1.0 / 16.0
+        widths[code] = width_of(code)
+    return start, end, widths
 
 
 def _box(center, half):
@@ -42,13 +68,7 @@ def synthetic_arrays(tex_names) -> dict:
     """{"hud.<field>": ndarray, "vm_<field>": ndarray} for a bundle whose
     atlas holds the textures `tex_names` (arena_lit's)."""
     tid = lambda name: np.int32(list(tex_names).index(name))
-    start = np.full(128, -1.0, np.float32)
-    end = np.full(128, -1.0, np.float32)
-    widths = np.zeros(128, np.float32)
-    for code in range(32, 128):  # printable ASCII: 16 glyph cells a row of the texture
-        start[code] = ((code - 32) % 16) / 16.0
-        end[code] = start[code] + 1.0 / 16.0
-        widths[code] = 6.0 + code % 5
+    start, end, widths = _font_table(lambda code: 6.0 + code % 5)
     pos, uv = _box(np.array([-0.22, -0.12, 0.7]), 0.08)
     rng = np.random.default_rng(0)
     color = np.concatenate([rng.uniform(0.5, 1.0, (12, 3, 3)), np.ones((12, 3, 1))], -1).astype(np.float32)
@@ -61,14 +81,31 @@ def synthetic_arrays(tex_names) -> dict:
     }
 
 
+def synthetic_ui_arrays(tex_names, tex_table) -> dict:
+    """{"ui.<field>": ndarray} of UiAssets for a bundle whose atlas holds
+    the textures `tex_names` (arena_lit's), with its table [T, 6] (x0, y0,
+    w, h, repeat, filter): each slot's size is its texture's w and h."""
+    ids = np.array([list(tex_names).index(name) for name in UI_SLOTS], np.int32)
+    start, end, widths = _font_table(lambda code: 5.0 + code % 4)
+    return {
+        "ui.tex": ids, "ui.tex_size": np.asarray(tex_table, np.float32)[ids, 2:4].copy(),
+        "ui.font_tex": np.int32(list(tex_names).index(SMALL_FONT)), "ui.font_start_u": start, "ui.font_end_u": end,
+        "ui.font_widths": widths, "ui.font_height": np.float32(16.0), "ui.font_spacing": np.float32(1.0),
+    }
+
+
 def with_synthetic_hud(bundle):
-    """The port's bundle with the synthetic HUD and viewmodel assets."""
+    """The port's bundle with the synthetic HUD, UI and viewmodel assets."""
     from c_game_engine_tpu_torch.render.hud import HudAssets
+    from c_game_engine_tpu_torch.ui.stack import UiAssets
 
     dev = bundle.atlas.table.device
     arrays = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_arrays(bundle.tex_names).items()}
     hud = HudAssets(**{k[4:]: v for k, v in arrays.items() if k.startswith("hud.")})
-    return dataclasses.replace(bundle, hud=hud, **{k: v for k, v in arrays.items() if k.startswith("vm_")})
+    ui = {k[3:]: torch.as_tensor(v, device=dev)
+          for k, v in synthetic_ui_arrays(bundle.tex_names, bundle.atlas.table.cpu().numpy()).items()}
+    return dataclasses.replace(bundle, hud=hud, ui=UiAssets(**ui),
+                               **{k: v for k, v in arrays.items() if k.startswith("vm_")})
 
 
 def hud_values(batch) -> dict:

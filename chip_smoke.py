@@ -78,7 +78,19 @@ Phases (any failure exits non-zero and prints no result line):
      one c_game_engine_tpu_torch.bench call, one entry() step,
      dryrun_multichip(2) on the card and the demo (30 ticks, 2 frames of
      arena_lit: a WAV peak above 0, each frame's non-sky coverage at least
-     0.03).
+     0.03);
+  9. the app layer (`app_phase`): GameApp (models/game.py) with the
+     synthetic HUD, UI, viewmodel and sounds through the scripted session
+     of models/game_check.py (splash -> menu -> level select -> arena_lit
+     -> 60 ticks of the bench stream -> pause -> options -> video options,
+     one FOV step -> back -> pause -> resume -> 60 ticks), a 256 x 256
+     frame of every screen, every count reset just before and read just
+     after (K1, K2 and K4 launch; K3 and K5 not); the same session on the
+     CPU port in a subprocess: equal screens and events, the in-game
+     frames within the frame bar of the CPU's and with non-sky coverage
+     of at least 0.03, every control of the widget screens drawn over its
+     background; 0 host syncs over in-game tick + render_frame pairs and
+     their rate; play.py --script --seconds 5 headless and its frames/s.
 The render path runs through its CUDA graphs (render/graph.py): on the
 card render_batch and render_with_hud_batch replay one captured graph per
 option set, the reveal overflow a conditional node in it. So phase 3 also
@@ -99,13 +111,14 @@ The last three lines are the card's name and power limit, a JSON object
 with each kernel's launches, error, times and bound (and steps/s of the
 graph and of the eager loop, the graphs, the per-replay figures, frames/s
 of the render graphs and of the eager render, the long run and the
-bench, the audio, mesh, action stream and demo figures), and
+bench, the audio, mesh, action stream, demo and app figures), and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -133,6 +146,9 @@ KERNELS = ("capsule_resolve", "ray_tris", "body_contacts", "raster_tiles", "rast
 # the render main path: bench_render's batch, size and sweep
 RENDER_BATCH, SIZE, HEADINGS, RENDER_TICKS = 64, 256, 4, 60
 FRAME_BAR = 0.002  # share of pixels that may differ by more than 1/255
+# the app phase: in-game ticks each way of the session; tick + render_frame
+# pairs counted for host syncs and timed
+APP_TICKS, APP_SYNC_TICKS, APP_RATE_TICKS = 60, 5, 60
 
 # H100 SXM published peaks (float32 outside the tensor cores; HBM3)
 PEAK_FLOPS = 67e12
@@ -1163,6 +1179,158 @@ def entry_points_phase(card):
             "bench": b, "dryrun_multichip_metric": dry, "demo": demo_out}, counts
 
 
+def _widget_contrast(frame, bg, sd):
+    """The least share, over the stack's controls, of the pixels of a
+    control's rect (virtual units scaled to the frame, clipped to it) that
+    differ from the background by more than 1/255: how much of its rect
+    the faintest widget drew on (a checkbox draws its box and label only;
+    the video options' last one lies half below the frame)."""
+    h, w = frame.shape[:2]
+    least = float("inf")
+    for x0, y0, cw, ch in sd.rect:
+        xs = slice(max(int(x0 * w / 640), 0), min(int((x0 + cw) * w / 640) + 1, w))
+        ys = slice(max(int(y0 * h / 480), 0), min(int((y0 + ch) * h / 480) + 1, h))
+        changed = (frame[ys, xs] - bg[ys, xs]).abs().amax(-1) > 1 / 255
+        least = min(least, float(changed.float().mean()))
+    return least
+
+
+def app_phase(card):
+    """The app layer on the card (models/game.py, models/game_check.py):
+    GameApp with the synthetic HUD, UI and viewmodel assets and sounds, the
+    scripted session (splash -> menu -> level select -> arena_lit ->
+    APP_TICKS ticks of the bench stream -> pause -> options -> video
+    options, one FOV step -> back -> pause -> resume -> APP_TICKS ticks), a
+    SIZE x SIZE frame at every step that reaches a screen, every count
+    reset just before the session and read just after (K1, K2 and K4 must
+    launch, K3 and K5 not). Beside it the same session runs on the CPU port
+    in a subprocess (game_check.py's CLI, on one host thread): equal
+    screens and events, every frame of the session (the widget screens and
+    the world under them too) within FRAME_BAR of the CPU's, the in-game
+    frames each with non-sky coverage of at least 0.03, and, as an extra
+    guard, every widget screen's controls drawn over their background (at
+    least 1% of each control's rect changed). Then 0 host syncs over
+    APP_SYNC_TICKS in-game tick + render_frame pairs. Only once the CPU
+    session has ended, so nothing else contends for the host: the pairs'
+    rate over APP_RATE_TICKS and play.py --script --seconds 5 headless (its
+    frames/s). Returns (figures, the session's kernel launches)."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from c_game_engine_tpu_torch.audio.synthetic_sounds import write_synthetic_sounds
+    from c_game_engine_tpu_torch.models.game import GameApp, Screen
+    from c_game_engine_tpu_torch.models.game_check import app_script, check_session, run_script
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
+    from c_game_engine_tpu_torch.models.sim import bench_actions
+    from c_game_engine_tpu_torch.ui.screens import draw_rect
+    from c_game_engine_tpu_torch.ui.stack import UiInput
+    from c_game_engine_tpu_torch.utils import counters
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sounds = write_synthetic_sounds(Path(tmp) / "sounds")
+        cpu_out = str(Path(tmp) / "cpu_session")
+        t_cpu = time.perf_counter()
+        cpu = subprocess.Popen([sys.executable, "-m", "c_game_engine_tpu_torch.models.game_check", cpu_out,
+                                "--ticks", str(APP_TICKS), "--size", str(SIZE), "--sounds", str(sounds)],
+                               cwd=ROOT, stdout=subprocess.DEVNULL)
+        play = None
+        try:
+            app = GameApp(device="cuda", synthetic_assets=True, sound_dir=sounds)
+            steps = app_script(app.list_levels(), "arena_lit", APP_TICKS)
+            acts = bench_actions(2 * APP_TICKS, 1, "cuda")
+            torch.cuda.synchronize()
+            counters.reset()
+            t0 = time.perf_counter()
+            rec = run_script(app, steps, lambda kw: UiInput.at_mouse(-1.0, -1.0, **kw), lambda t: acts[t], SIZE)
+            torch.cuda.synchronize()
+            session_s = time.perf_counter() - t0
+            counts = kernel_counts()
+
+            sync_acts = bench_actions(APP_SYNC_TICKS, 1, "cuda")
+            _, syncs = host_syncs(lambda: [(app.tick(sync_acts[t]), app.render_frame(SIZE, SIZE))
+                                           for t in range(APP_SYNC_TICKS)])
+            cpu_rc = cpu.wait(timeout=600)
+            cpu_s = time.perf_counter() - t_cpu
+            rate_acts = bench_actions(APP_RATE_TICKS, 1, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(APP_RATE_TICKS):
+                app.tick(rate_acts[t])
+                last = app.render_frame(SIZE, SIZE)
+            torch.cuda.synchronize()
+            rate = APP_RATE_TICKS / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            play = subprocess.Popen([sys.executable, "-m", "c_game_engine_tpu_torch.play", "--script", "--seconds",
+                                     "5", "--synthetic", "--out", os.devnull], cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            play_out, play_err = play.communicate(timeout=300)
+            play_s = time.perf_counter() - t0
+        finally:
+            for proc in (play, cpu):
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if cpu_rc != 0:
+            raise AssertionError(f"app phase: the CPU session exited {cpu_rc}")
+        with open(cpu_out + ".json") as f:
+            ref = json.load(f)
+        with np.load(cpu_out + ".npz") as z:
+            cpu_frames = {k: torch.from_numpy(z[k]) for k in z.files}
+    if play.returncode != 0:
+        raise AssertionError(f"play.py exited {play.returncode}: {play_err[-2000:]}")
+    viewer = json.loads(play_out.strip().splitlines()[-1])
+    if viewer["frames"] < 1 or not viewer["device"].startswith("cuda"):
+        raise AssertionError(f"play.py: {viewer}")
+    if syncs != 0:
+        raise AssertionError(f"app phase: {syncs} host syncs over {APP_SYNC_TICKS} in-game tick + render_frame")
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("app phase: the timed frames are not finite")
+    check_session(rec)
+    if rec["screens"] != ref["screens"] or rec["events"] != ref["events"] or rec["ticks"] != ref["ticks"]:
+        raise AssertionError(f"app phase: card screens {rec['screens']} events {rec['events']}, CPU "
+                             f"{ref['screens']} {ref['events']}")
+    frames = rec["frames"]
+    if sorted(frames) != sorted(cpu_frames):
+        raise AssertionError(f"app phase: card frames {sorted(frames)}, CPU frames {sorted(cpu_frames)}")
+    for label, f in frames.items():
+        if f.shape != (SIZE, SIZE, 3) or not bool(torch.isfinite(f).all()) or f.device.type != "cuda":
+            raise AssertionError(f"app phase: frame {label} {tuple(f.shape)} on {f.device}, or not finite")
+    world = ("in_game", "in_game_again")
+    off = {k: float(((frames[k].cpu() - cpu_frames[k]).abs().amax(-1) > 1 / 255).float().mean()) for k in frames}
+    covs = {k: coverage(frames[k]) for k in world}
+    if max(off.values()) > FRAME_BAR or min(covs.values()) < 0.03:
+        raise AssertionError(f"app phase: frames off the CPU's {off}, in-game coverage {covs}")
+    dim = draw_rect(frames["in_game"], 0, 0, SIZE, SIZE, (0.0, 0.0, 0.0, 0.5))
+    contrast = {}
+    for label, screen, bg in (("menu", Screen.MENU, torch.zeros_like(dim)), ("paused", Screen.PAUSED, dim),
+                              ("options", Screen.OPTIONS, dim), ("video_options_fov", Screen.VIDEO_OPTIONS, dim)):
+        contrast[label] = _widget_contrast(frames[label], bg, app._ui[screen][0])
+    if min(contrast.values()) < 0.01:
+        raise AssertionError(f"app phase: a widget screen left a control's rect as its background: {contrast}")
+    expect = {"capsule_resolve": 2 * APP_TICKS + 1, "ray_tris": 2 * APP_TICKS + 1}
+    if (any(counts[k] < n for k, n in expect.items()) or counts["raster_tiles"] < 2 * len(world)
+            or counts["body_contacts"] or counts["raster_tiles_big"]):
+        raise AssertionError(f"app phase: launches {counts} over {rec['ticks']} ticks and {len(frames)} frames")
+
+    print(f"app session on {card}: {len(rec['screens'])} steps, screens and events equal the CPU port's "
+          f"(fired {[e for e in rec['events'] if e]}); {rec['ticks']} ticks, {len(frames)} frames of "
+          f"{SIZE}x{SIZE} in {session_s:.2f} s (beside the CPU session, {cpu_s:.1f} s with start-up); share of "
+          f"pixels off the CPU's {off}; in-game non-sky coverage {covs}; least share of a control's rect drawn "
+          f"over the background {contrast}; launches {counts}", flush=True)
+    print(f"app in game: {rate:.1f} ticks + frames/s ({APP_RATE_TICKS} x tick + render_frame, batch 1, "
+          f"{SIZE}x{SIZE}, after the CPU session ended), {syncs} host syncs over {APP_SYNC_TICKS} pairs", flush=True)
+    print(f"play.py --script --seconds 5: {viewer['frames']} frames, median {viewer['median_ms']:.2f} ms, "
+          f"{viewer['fps_uncapped']:.1f} frames/s uncapped (view {viewer['view']} of {viewer['size']}^2), "
+          f"{play_s:.1f} s with start-up", flush=True)
+    return {"steps": len(rec["screens"]), "events": [e for e in rec["events"] if e], "ticks": rec["ticks"],
+            "frames": len(frames), "session_s": session_s, "cpu_session_s": cpu_s, "off_share": off, "coverage": covs,
+            "widget_contrast": contrast, "ticks_frames_per_s": rate, "host_syncs_per_pair": syncs / APP_SYNC_TICKS,
+            "viewer": viewer, "viewer_process_s": play_s}, counts
+
+
 def main() -> int:
     import torch
 
@@ -1276,6 +1444,8 @@ def main() -> int:
     by_path["action_replay"] = {"counts": counts}
     extras, counts = entry_points_phase(card)
     by_path["demo"] = {"counts": counts}
+    extras["app"], counts = app_phase(card)
+    by_path["app"] = {"counts": counts}
     for cm, name in ((arena, "arena"), (bodies_map, "arena_bodies")):
         for (batch, collects), g in cm.graphs.items():
             print(f"graph {name} x {batch}{' (collect)' if collects else ''}: capture {g.capture_s:.2f} s, "

@@ -157,3 +157,79 @@ def test_synthetic_sounds_cover_every_decode_branch(sounds):
     container.write_asset(not_sound, container.Asset(container.AssetType.TEXTURE, 1, b"\x00"))
     with pytest.raises(reader.PayloadError):
         decode_gsnd(not_sound)
+
+
+def _gtex_bytes(rng, w, h, fmt, flags):
+    """A .gtex payload (TextureLoader.c:70-140) of seeded pixels."""
+    wr = reader.Writer().u64(w).u64(h)
+    for f in flags:
+        wr.u8(f)
+    wr.u8(fmt)
+    if fmt == 0:
+        wr.raw(rng.integers(0, 256, (h, w, 4)).astype(np.uint8).tobytes())
+    else:
+        wr.raw(rng.uniform(-2.0, 8.0, (h, w, 4)).astype(np.float16).tobytes())
+    return wr.getvalue()
+
+
+@pytest.mark.parametrize("fmt, flags", [(0, (1, 0, 1)), (0, (0, 1, 0)), (1, (1, 1, 1))])
+def test_decode_gtex_matches_jax(tmp_path, fmt, flags):
+    """RGBA8 and RGBA16F textures written by the port's container writer,
+    with each filter / repeat / mipmaps flag: the same Texture, pixels
+    bit for bit."""
+    from c_game_engine_tpu.assets.codecs import decode_gtex as j_decode_gtex
+    from c_game_engine_tpu_torch.assets.codecs import decode_gtex
+
+    path = tmp_path / "t.gtex"
+    rng = np.random.default_rng(fmt * 10 + sum(flags))
+    container.write_asset(path, container.Asset(container.AssetType.TEXTURE, 1, _gtex_bytes(rng, 7, 5, fmt, flags)))
+    mine, theirs = decode_gtex(path), j_decode_gtex(path)
+    assert (mine.width, mine.height, mine.filter, mine.repeat, mine.mipmaps) == \
+        (theirs.width, theirs.height, theirs.filter, theirs.repeat, theirs.mipmaps) == (7, 5, *map(bool, flags))
+    assert mine.pixels.dtype == np.float32 and mine.pixels.shape == (5, 7, 4)
+    np.testing.assert_array_equal(mine.pixels, theirs.pixels)
+
+
+@pytest.mark.parametrize("texture_width", [None, 256])
+def test_decode_gfon_matches_jax(tmp_path, texture_width):
+    """A font written by the port's container writer (FontLoader.c:79-110:
+    eight u8 metrics, the texture name, the glyph table): the same Font,
+    UV tables bit for bit, with and without the end-UV inset."""
+    from c_game_engine_tpu.assets.codecs import decode_gfon as j_decode_gfon
+    from c_game_engine_tpu_torch.assets.codecs import decode_gfon
+
+    rng = np.random.default_rng(4)
+    chars = "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 .:%"
+    wr = reader.Writer()
+    for v in (12, 16, 13, 1, 2, 5, 16, 1):
+        wr.u8(v)
+    wr.string("interface/small_font").u8(len(chars))
+    for ch in chars:
+        wr.u8(ord(ch)).u8(int(rng.integers(3, 12)))
+    path = tmp_path / "f.gfon"
+    container.write_asset(path, container.Asset(container.AssetType.FONT, 1, wr.getvalue()))
+    mine, theirs = decode_gfon(path, texture_width), j_decode_gfon(path, texture_width)
+    for f in ("texture", "width", "texture_height", "baseline", "char_spacing", "line_spacing", "space_width",
+              "default_size", "uppercase_only", "chars"):
+        assert getattr(mine, f) == getattr(theirs, f), f
+    assert mine.texture == "texture/interface/small_font.gtex" and mine.uppercase_only and mine.chars == chars
+    for f in ("widths", "start_uvs", "end_uvs"):
+        a, b = getattr(mine, f), getattr(theirs, f)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_checkerboard_and_wrong_types(tmp_path):
+    from c_game_engine_tpu.assets.codecs import checkerboard_fallback as j_checker
+    from c_game_engine_tpu_torch.assets.codecs import checkerboard_fallback, decode_gfon, decode_gtex
+
+    for size in (64, 8):
+        mine, theirs = checkerboard_fallback(size), j_checker(size)
+        assert (mine.width, mine.height, mine.filter, mine.repeat, mine.mipmaps) == \
+            (theirs.width, theirs.height, theirs.filter, theirs.repeat, theirs.mipmaps)
+        np.testing.assert_array_equal(mine.pixels, theirs.pixels)
+    wav = tmp_path / "s.gsnd"
+    container.write_asset(wav, container.Asset(container.AssetType.WAV, 1, b"RIFF"))
+    for decode in (decode_gtex, decode_gfon):
+        with pytest.raises(reader.PayloadError):
+            decode(wav)

@@ -97,14 +97,16 @@ BUNDLE_DIGESTS_BEFORE_HUD = {
 
 @pytest.mark.parametrize("name", sorted(BUNDLE_DIGESTS_BEFORE_HUD))
 def test_bundle_arrays_before_the_hud_fields_are_unchanged(name):
-    """The committed bundle holds the HUD (`hud.<field>`) and viewmodel
-    (`vm_*`) leaves, asset-free (ids -1, no rows), and every other array
-    byte for byte as before they were added."""
+    """The committed bundle holds the HUD (`hud.<field>`), UI
+    (`ui.<field>`) and viewmodel (`vm_*`) leaves, asset-free (ids -1, no
+    rows), and every other array byte for byte as before they were added."""
     import hashlib
 
     from c_game_engine_tpu_torch.render.hud import HUD_FIELDS
+    from c_game_engine_tpu_torch.ui.stack import NUM_UITEX, UI_FIELDS
 
-    new = {f"hud.{k}" for k in HUD_FIELDS} | {"vm_pos", "vm_uv", "vm_color", "vm_tex", "vm_item"}
+    new = ({f"hud.{k}" for k in HUD_FIELDS} | {f"ui.{k}" for k in UI_FIELDS}
+           | {"vm_pos", "vm_uv", "vm_color", "vm_tex", "vm_item"})
     h = hashlib.sha256()
     with np.load(MAP_DIR / f"{name}_bundle.npz") as z:
         assert new <= set(z.files)
@@ -113,6 +115,7 @@ def test_bundle_arrays_before_the_hud_fields_are_unchanged(name):
             h.update(f"{k} {a.dtype.str} {a.shape}".encode())
             h.update(np.ascontiguousarray(a).tobytes())
         assert int(z["hud.ycoin_tex"]) == int(z["hud.font_tex"]) == -1 and z["vm_pos"].shape == (0, 3, 3)
+        assert z["ui.tex"].shape == (NUM_UITEX,) and (z["ui.tex"] == -1).all() and int(z["ui.font_tex"]) == -1
     assert h.hexdigest() == BUNDLE_DIGESTS_BEFORE_HUD[name]
 
 

@@ -1,6 +1,7 @@
 """The env-sharded mesh (parallel/mesh.py) on the CPU: shards of a
 multiple of 128 envs step to the unsharded result bit for bit, every
-leaf; the mesh's checks; and dryrun_multichip on CPU entries.
+leaf; the mesh's checks (other shard sizes are refused on a mesh of
+several entries); and dryrun_multichip on CPU entries (128 envs each).
 
 The same device appears several times in a CPU mesh, as one card does in
 chip_smoke.py's mesh phase. The JAX package's sharded_rollout is held to
@@ -50,11 +51,23 @@ def test_mesh_checks():
         shard_sim(cmap, 100, make_mesh(devices=["cpu"] * 3))
     with pytest.raises(ValueError, match="empty mesh"):
         make_mesh(devices=[])
-    _, states, step_fn = shard_sim(cmap, 4, make_mesh(devices=["cpu"] * 2))
+    _, states, step_fn = shard_sim(cmap, 256, make_mesh(devices=["cpu"] * 2))
     from c_game_engine_tpu_torch.core.actions import Actions
 
-    out = step_fn(states, Actions.zeros((4,), device="cpu"))
-    assert [int(s.tick.sum()) for s in out] == [2, 2]
+    out = step_fn(states, Actions.zeros((256,), device="cpu"))
+    assert [int(s.tick.sum()) for s in out] == [128, 128]
+
+
+@pytest.mark.parametrize("shards, batch", [(2, 128), (4, 256), (3, 384 + 3)])
+def test_shards_off_the_lane_block_are_refused(shards, batch):
+    """A mesh of several entries whose shards are not whole 128-lane blocks
+    of the capsule kernel (64 envs; 129) is refused, naming fault f; one
+    entry takes any batch."""
+    cmap = load_named_map("arena", "cpu")
+    with pytest.raises(ValueError, match="fault f"):
+        shard_sim(cmap, batch, make_mesh(devices=["cpu"] * shards))
+    _, states, _ = shard_sim(cmap, 64, make_mesh(devices=["cpu"]))
+    assert states[0].tick.shape == (64,)
 
 
 def test_dryrun_multichip_on_cpu(capsys):

@@ -606,12 +606,15 @@ def bundle_to_numpy(rb):
     as c_game_engine_tpu_torch/render/bundle.py::load_bundle reads them."""
     from c_game_engine_tpu_torch.render.bundle import ARRAYS, ATLAS_ARRAYS
     from c_game_engine_tpu_torch.render.hud import HUD_FIELDS
+    from c_game_engine_tpu_torch.ui.stack import UI_FIELDS
 
     leaves = {k: np.asarray(getattr(rb, k)) for k in ARRAYS}
     for k in ATLAS_ARRAYS:
         leaves[f"atlas.{k}"] = np.asarray(getattr(rb.atlas, k))
     for k in HUD_FIELDS:
         leaves[f"hud.{k}"] = np.asarray(getattr(rb.hud, k))
+    for k in UI_FIELDS:
+        leaves[f"ui.{k}"] = np.asarray(getattr(rb.ui, k))
     # bf16 -> f32 is exact
     leaves["atlas.blocked"] = np.asarray(rb.atlas.blocked.astype(np.float32))
     static = {"live_tri_bound": int(rb.live_tri_bound), "has_alpha": bool(rb.has_alpha),
