@@ -8,9 +8,11 @@ hand in CUDA C++ under `csrc/`. The layout and module names follow the JAX
 package so each counterpart is easy to find. It never imports jax or
 c_game_engine_tpu.
 
-Maps come in as plain numpy/JSON exports of the JAX compiler's output
-(`core/state.py::load_map`; `maps/*` are built by
-`tests/torch_export_map.py`).
+Maps are compiled by the port's own compiler from `.gmap` binaries and
+editor-JSON sources (`compiler/compile.py::compile_map`, through the cache
+of `compiler/cache.py`), or loaded from plain numpy/JSON files
+(`core/state.py::load_map`; the committed `maps/*` are built by
+`tests/torch_export_map.py` with the JAX compiler).
 """
 
 import torch

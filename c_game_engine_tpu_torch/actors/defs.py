@@ -1,10 +1,12 @@
 """Actor class registry: enums, flags and the signal (I/O) vocabulary.
 
-Copied from c_game_engine_tpu/actors/defs.py: the enums, flags and lane
-counts (the compiler's name tables stay there). That module's docstring
+Copied from c_game_engine_tpu/actors/defs.py: the enums, flags, lane
+counts and the compiler's name tables (class, input and output names, the
+inputs each class handles). That module's docstring
 lists the per-class fdata/idata and sfparams/siparams layouts. The port
 never imports the JAX package, so the values live here too, and
-tests/test_torch_kernels.py holds them equal.
+tests/test_torch_kernels.py holds them equal (tests/test_torch_map_codecs.py
+the name tables).
 """
 
 from __future__ import annotations
@@ -42,6 +44,38 @@ class ActorClass(enum.IntEnum):
     TEST_ACTOR = 20
     NPC_JOHN = 21
     ITEM_ERASER = 22
+
+
+CLASS_NAMES: dict[str, ActorClass] = {
+    "io_proxy": ActorClass.IO_PROXY,
+    "logic_binary": ActorClass.LOGIC_BINARY,
+    "logic_counter": ActorClass.LOGIC_COUNTER,
+    "logic_decimal": ActorClass.LOGIC_DECIMAL,
+    "sound_player": ActorClass.SOUND_PLAYER,
+    "prop_sprite": ActorClass.SPRITE,
+    "prop_model_static": ActorClass.STATIC_MODEL,
+    "prop_model_physics": ActorClass.PHYSICS_MODEL,
+    "trigger": ActorClass.TRIGGER,
+    "global_light": ActorClass.GLOBAL_LIGHT,
+    "global_fog": ActorClass.GLOBAL_FOG,
+    "tonemap_controller": ActorClass.TONEMAP_CONTROLLER,
+    "camera": ActorClass.CAMERA,
+    "prop_button": ActorClass.BUTTON,
+    "prop_coin": ActorClass.COIN,
+    "prop_door": ActorClass.DOOR,
+    "prop_goal": ActorClass.GOAL,
+    "prop_laser": ActorClass.LASER,
+    "prop_laser_emitter": ActorClass.LASER_EMITTER,
+    "prop_physbox": ActorClass.PHYSBOX,
+    "test_actor": ActorClass.TEST_ACTOR,
+    "npc_john": ActorClass.NPC_JOHN,
+    "item_eraser": ActorClass.ITEM_ERASER,
+}
+
+# Classes consumed by the map compiler rather than instantiated at runtime:
+# "player" becomes the spawn transform (MapLoader.c:126-133); "light_point"
+# is baked into the lightmap by the (external) editor compiler — ours too.
+COMPILE_TIME_CLASSES = {"player", "light_point"}
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +145,85 @@ class Output(enum.IntEnum):
     HIT_MIN = 18
     LEFT_MIN = 19
     FIRST_TICK = 20
+
+
+INPUT_NAMES = {
+    "kill": Input.KILL,
+    "open": Input.OPEN,
+    "close": Input.CLOSE,
+    "turn_on": Input.TURN_ON,
+    "turn_off": Input.TURN_OFF,
+    "set": Input.SET,
+    "set_instant": Input.SET_INSTANT,
+    "enable": Input.ENABLE,
+    "disable": Input.DISABLE,
+    "force_trigger": Input.FORCE_TRIGGER,
+    "operand_a": Input.OPERAND_A,
+    "operand_b": Input.OPERAND_B,
+    "execute": Input.EXECUTE,
+    "add": Input.ADD,
+    "subtract": Input.SUBTRACT,
+    "increment": Input.INCREMENT,
+    "decrement": Input.DECREMENT,
+    "set_color": Input.SET_COLOR,
+    "set_skin": Input.SET_SKIN,
+    "play": Input.PLAY,
+    "pause": Input.PAUSE,
+    "resume": Input.RESUME,
+    "stop": Input.STOP,
+}
+
+OUTPUT_NAMES = {
+    "spawned": Output.SPAWNED,
+    "killed": Output.KILLED,
+    "fully_closed": Output.FULLY_CLOSED,
+    "opening": Output.OPENING,
+    "fully_opened": Output.FULLY_OPENED,
+    "closing": Output.CLOSING,
+    "pressed": Output.PRESSED,
+    "unpressed": Output.UNPRESSED,
+    "collected": Output.COLLECTED,
+    "entered": Output.ENTERED,
+    "exited": Output.EXITED,
+    "triggered": Output.TRIGGERED,
+    "on_true": Output.ON_TRUE,
+    "on_false": Output.ON_FALSE,
+    "execution_result": Output.EXECUTION_RESULT,
+    "counter_changed": Output.COUNTER_CHANGED,
+    "hit_max": Output.HIT_MAX,
+    "left_max": Output.LEFT_MAX,
+    "hit_min": Output.HIT_MIN,
+    "left_min": Output.LEFT_MIN,
+    "first_tick": Output.FIRST_TICK,
+}
+
+# Which inputs each class handles (others are dropped with a warning in the
+# reference, ActorTriggerInput Actor.c:52-64; here: dropped at compile time).
+CLASS_INPUTS: dict[ActorClass, set[Input]] = {
+    ActorClass.IO_PROXY: set(),  # kill explicitly unregistered (IoProxy.c:Register)
+    ActorClass.LOGIC_BINARY: {Input.KILL, Input.OPERAND_A, Input.OPERAND_B, Input.EXECUTE},
+    ActorClass.LOGIC_COUNTER: {Input.KILL, Input.ADD, Input.SUBTRACT, Input.INCREMENT, Input.DECREMENT},
+    ActorClass.LOGIC_DECIMAL: {Input.KILL, Input.OPERAND_A, Input.OPERAND_B, Input.EXECUTE},
+    ActorClass.SOUND_PLAYER: {Input.KILL, Input.PLAY, Input.PAUSE, Input.RESUME, Input.STOP},
+    ActorClass.SPRITE: {Input.KILL},
+    ActorClass.STATIC_MODEL: {Input.KILL},
+    ActorClass.PHYSICS_MODEL: {Input.KILL, Input.SET_COLOR, Input.SET_SKIN},
+    ActorClass.TRIGGER: {Input.KILL, Input.FORCE_TRIGGER, Input.ENABLE, Input.DISABLE},
+    ActorClass.GLOBAL_LIGHT: {Input.KILL, Input.SET, Input.SET_INSTANT},
+    ActorClass.GLOBAL_FOG: {Input.KILL, Input.SET, Input.SET_INSTANT},
+    ActorClass.TONEMAP_CONTROLLER: {Input.KILL, Input.SET, Input.SET_INSTANT},
+    ActorClass.CAMERA: {Input.KILL, Input.ENABLE, Input.DISABLE},
+    ActorClass.BUTTON: {Input.KILL},
+    ActorClass.COIN: {Input.KILL},
+    ActorClass.DOOR: {Input.KILL, Input.OPEN, Input.CLOSE},
+    ActorClass.GOAL: {Input.KILL, Input.ENABLE, Input.DISABLE},
+    ActorClass.LASER: {Input.KILL, Input.TURN_ON, Input.TURN_OFF},
+    ActorClass.LASER_EMITTER: {Input.KILL, Input.TURN_ON, Input.TURN_OFF},
+    ActorClass.PHYSBOX: {Input.KILL},
+    ActorClass.TEST_ACTOR: {Input.KILL},
+    ActorClass.NPC_JOHN: {Input.KILL},
+    ActorClass.ITEM_ERASER: {Input.KILL},
+}
 
 
 # ---------------------------------------------------------------------------

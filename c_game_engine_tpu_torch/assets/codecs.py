@@ -3,22 +3,40 @@ c_game_engine_tpu/assets/codecs.py), host side, numpy:
 
   .gtex  engine/src/assets/TextureLoader.c:70-140 (w, h u64; filter,
          repeat, mipmaps, pixelFormat u8; RGBA8 or RGBA16F pixels)
+  .gmdl  engine/src/assets/ModelLoader.c:34-217 (materials, skins, LODs of
+         packed ModelVertex {pos 3f, uv 2f, color 4f, normal 3f}, AABB,
+         collision hulls or a static trimesh)
+  .gmtl  engine/src/assets/MapMaterialLoader.c:17-80 (texture path, 2
+         editor floats skipped, shader u8, soundClass u8)
   .gfon  engine/src/assets/FontLoader.c:79-110
-  .gsnd  a whole WAV file
-
-`decode_gmdl` and `decode_gmtl` come with the compiler (ROADMAP §1 item 7)."""
+  .gsnd  a whole WAV file"""
 
 from __future__ import annotations
 
+import enum
 import io
 import wave
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 
 from c_game_engine_tpu_torch.assets.container import AssetType, read_asset
 from c_game_engine_tpu_torch.assets.reader import PayloadError, Reader
+
+
+class ModelShader(enum.IntEnum):
+    # engine/include/engine/assets/ModelLoader.h:34-43
+    SKY = 0
+    SHADED = 1
+    UNSHADED = 2
+
+
+class CollisionModelType(enum.IntEnum):
+    # engine/include/engine/assets/ModelLoader.h (COLLISION_MODEL_TYPE_*)
+    NONE = 0
+    STATIC = 1
+    DYNAMIC = 2
 
 
 @dataclass
@@ -56,6 +74,92 @@ def checkerboard_fallback(size: int = 64) -> Texture:
     px[..., 2] = cell
     px[..., 3] = 1.0
     return Texture(size, size, False, True, False, px)
+
+
+@dataclass
+class ModelLod:
+    distance_squared: float
+    vertices: np.ndarray  # [V, 12] f32: pos(3) uv(2) color(4) normal(3)
+    indices: list[np.ndarray]  # per material slot, u32
+
+
+@dataclass
+class Model:
+    materials: list[dict]  # {texture, color[4], shader}
+    skins: np.ndarray  # [numSkins, numSlots] u32 -> material index
+    lods: list[ModelLod]
+    aabb_origin: np.ndarray  # [3]
+    aabb_extents: np.ndarray  # [3] half extents
+    collision_type: CollisionModelType
+    hulls: list[dict] = field(default_factory=list)  # {offset[3], points [P,3]}
+    static_tris: np.ndarray | None = None  # [T, 3, 3]
+
+
+def decode_gmdl(path: str | Path) -> Model:
+    asset = read_asset(path)
+    if asset.type != AssetType.MODEL:
+        raise PayloadError(f"{path}: not a model asset")
+    r = Reader(asset.data)
+    n_materials, n_slots, n_skins, n_lods = r.u32(), r.u32(), r.u32(), r.u32()
+    collision_type = CollisionModelType(r.u8())
+
+    materials = []
+    for _ in range(n_materials):
+        tex = r.string()
+        color = np.array([r.f32() for _ in range(4)], dtype=np.float32)
+        materials.append({"texture": tex, "color": color, "shader": ModelShader(r.u32())})
+
+    skins = np.zeros((n_skins, n_slots), dtype=np.uint32)
+    for i in range(n_skins):
+        for j in range(n_slots):
+            skins[i, j] = r.u32()
+
+    lods = []
+    for _ in range(n_lods):
+        r.skip(4)  # the non-squared lod distance (the reference skips it too)
+        dist_sq = r.f32()
+        n_verts = r.u64()
+        verts = np.frombuffer(r.raw(n_verts * 12 * 4), dtype=np.float32).reshape(n_verts, 12)
+        r.u32()  # total index count
+        counts = [r.u32() for _ in range(n_slots)]
+        indices = [np.frombuffer(r.raw(c * 4), dtype=np.uint32).copy() for c in counts]
+        lods.append(ModelLod(dist_sq, verts.copy(), indices))
+
+    aabb_origin = np.array([r.f32() for _ in range(3)], dtype=np.float32)
+    aabb_extents = np.array([r.f32() for _ in range(3)], dtype=np.float32)
+
+    hulls: list[dict] = []
+    static_tris = None
+    if collision_type == CollisionModelType.DYNAMIC:
+        for _ in range(r.u64()):
+            n_points = r.u64()
+            offset = np.array([r.f32() for _ in range(3)], dtype=np.float32)
+            pts = np.frombuffer(r.raw(n_points * 12), dtype=np.float32).reshape(n_points, 3)
+            hulls.append({"offset": offset, "points": pts.copy()})
+    elif collision_type == CollisionModelType.STATIC:
+        n_tris = r.u64()
+        static_tris = np.frombuffer(r.raw(n_tris * 36), dtype=np.float32).reshape(n_tris, 3, 3).copy()
+
+    return Model(materials, skins, lods, aabb_origin, aabb_extents, collision_type, hulls, static_tris)
+
+
+@dataclass
+class MapMaterial:
+    texture: str
+    shader: ModelShader
+    sound_class: int
+
+
+def decode_gmtl(path: str | Path) -> MapMaterial:
+    asset = read_asset(path)
+    if asset.type != AssetType.MAP_MATERIAL:
+        raise PayloadError(f"{path}: not a map material asset")
+    r = Reader(asset.data)
+    texture = r.string()
+    r.skip(8)  # default uv scale, editor-only (MapMaterialLoader.c:62-63)
+    shader = ModelShader(r.u8())
+    sound_class = r.u8()
+    return MapMaterial(texture, shader, sound_class)
 
 
 @dataclass

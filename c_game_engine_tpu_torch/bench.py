@@ -3,8 +3,10 @@ bench.py).
 
     python3 -m c_game_engine_tpu_torch.bench [map]
 
-(map: a committed map, default arena; bench.py's test.gmap needs the
-reference assets and a port of the map compiler.) BENCH_BATCH envs
+(map: a committed map's name, default arena, or a `.gmap` or editor-JSON
+source path, which the port compiles through its compile cache;
+bench.py's test.gmap is one such path where the reference assets are
+present.) BENCH_BATCH envs
 (default 4096) run BENCH_TICKS ticks (default 240) of
 models/sim.py::bench_actions (hold W, turn 0.01 rad a tick) through the
 map's tick graph: the graph is captured first (its seconds are reported

@@ -5,9 +5,10 @@ Field names, shapes and dtypes match the JAX pytrees leaf for leaf, so a
 state carries over between the two packages by name (`state_from_numpy`,
 `state_to_numpy`). A batched state has a leading [B] axis on every leaf.
 
-Maps arrive as the JAX compiler's output exported to plain files
-(`tests/torch_export_map.py`): `load_map` reads the numpy leaves and the
-JSON `aux` dict.
+Maps come from the port's compiler (compiler/compile.py) or from plain
+files: `load_map` reads the numpy leaves and the JSON `aux` dict that
+`save_map` (the compile cache, compiler/cache.py) and
+tests/torch_export_map.py (the committed maps) write.
 """
 
 from __future__ import annotations
@@ -223,6 +224,23 @@ def map_from_numpy(leaves: dict, aux: dict, device) -> CompiledMap:
             continue
         kw[f.name] = torch.from_numpy(np.array(leaves[f.name])).to(device)
     return CompiledMap(**kw, aux=aux)
+
+
+def map_to_numpy(cmap: CompiledMap) -> tuple[dict, dict]:
+    """({field: ndarray}, aux without the in-memory asset resolver)."""
+    leaves = {f.name: getattr(cmap, f.name).detach().cpu().numpy()
+              for f in dataclasses.fields(CompiledMap) if f.name != "aux"}
+    return leaves, {k: v for k, v in (cmap.aux or {}).items() if k != "resolver"}
+
+
+def save_map(cmap: CompiledMap, npz_path, json_path) -> None:
+    """Write a map as `load_map` reads it (and as tests/torch_export_map.py
+    writes the committed ones): the leaves as .npz, aux as .json."""
+    leaves, aux = map_to_numpy(cmap)
+    np.savez_compressed(npz_path, **leaves)
+    with open(json_path, "w") as f:
+        json.dump(aux, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 def load_map(npz_path, json_path, device) -> CompiledMap:

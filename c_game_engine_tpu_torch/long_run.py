@@ -3,7 +3,8 @@
     python3 -m c_game_engine_tpu_torch.long_run [map] [total_ticks] [segment]
 
 (defaults: arena, 1200 ticks, segments of 300; CGE_BATCH envs, default
-512). The env axis is sharded over the mesh (parallel/mesh.py; every
+512; map: a committed map's name or a `.gmap` or editor-JSON source path,
+compiled by the port, models/sim.py::load_named_map). The env axis is sharded over the mesh (parallel/mesh.py; every
 visible card, or the CPU with `--cpu`); each shard runs segments of the
 map's tick graph (models/sim.py::rollout; the eager tick on the CPU) with
 a per-env walk-and-turn stream (strafe sin(0.37 i), hold W, turn

@@ -10,24 +10,26 @@ Menu screens own a widget stack (ui/screens.py) processed by
 methods (`open_level_select`, `pause`, ...) remain for scripted runs.
 SaveData persists across maps and the menu can keep a background map.
 
-Departures from the JAX module, until the compiler and bundle builder are
-ported (ROADMAP §1 items 9-10):
-  * Maps: a level is a committed map of `map_dir` (default
-    c_game_engine_tpu_torch/maps/), loaded with core/state.py::load_map
-    (what models/sim.py::load_named_map does) and its bundle with
-    render/bundle.py::load_bundle, where the JAX app compiles `.gmap`
-    files and builds the bundle. `list_levels` lists the maps there
-    (`<name>.json` beside `<name>.npz`, the `_bundle` files left out).
-  * A map without a committed bundle (`arena`, `arena_bodies`) loads and
-    ticks, but drawing it (in-game, paused, the in-game options and a
-    background map) raises NotImplementedError: its bundle needs the
-    bundle builder (ROADMAP §1 item 10).
+Maps: a level is a `<name>.gmap` of `map_dir` (or a `.gmap` or editor
+JSON path), compiled by the port's compiler and its bundle built, through
+the compile cache (compiler/cache.py::load_compiled, its assets under
+`search_paths`), as the JAX app compiles `.gmap` files and builds the
+bundle; or a committed map of `map_dir` (default
+c_game_engine_tpu_torch/maps/: `<name>.json` beside `<name>.npz`, the
+`_bundle` files left out), loaded with core/state.py::load_map and its
+committed bundle with render/bundle.py::load_bundle. `list_levels` lists
+both. A committed map without a committed bundle (`arena`,
+`arena_bodies`) gets one built when it is first drawn
+(render/bundle.py::build_render_bundle over `search_paths`).
+
+Departures from the JAX module:
   * The UI atlas and assets come from background_map's bundle when that
-    is set, else from the current map's bundle, else from arena_lit's
-    (the JAX app reads test.gmap's).
+    is set, else from the current map's bundle where it is on file or
+    compiled, else from arena_lit's (the JAX app reads test.gmap's).
   * `synthetic_assets=True` puts render/synthetic_hud.py's HUD, UI and
-    viewmodel assets on every bundle (the committed ones have none, so
-    the screens would draw no widget); `sound_dir` is where the UI sounds
+    viewmodel assets on every bundle whose atlas holds the textures they
+    point at (arena_lit's; the committed bundles have none, so the screens
+    would draw no widget); `sound_dir` is where the UI sounds
     are resolved (audio/synthetic_sounds.py writes stand-ins).
   * The tick: on a CUDA device each level's tick goes through the map's
     tick graph for the app's batch (models/graph.py; the JAX app's
@@ -37,7 +39,8 @@ ported (ROADMAP §1 items 9-10):
     card); the env shown is taken as a batch of one, so the batch-of-one
     render graph serves every env.
   * UI audio is a channel table of one env ([1, 32] leaves) on the app's
-    device, advanced with the sound bank's frame counts.
+    device, advanced with the compiler's frame counts of the builtin
+    sounds (compiler/compile.py::_sound_lengths, as the JAX app reads them).
   * Host reads: `ui_tick` reads the fired events and, on an options
     screen, the option values on the host, once a UI frame (as the JAX
     app does). An in-game `tick` followed by `render_frame` reads nothing
@@ -92,11 +95,14 @@ def _aniso_ratio(enum_val: int) -> int:
 class GameApp:
     def __init__(self, map_dir: str | Path = MAPS, batch: int = 1, initial_map: str | None = None,
                  background_map: str | None = None, show_debug: bool = False, show_console: bool = False,
-                 device="cuda", synthetic_assets: bool = False, sound_dir: str | Path | None = None):
+                 device="cuda", synthetic_assets: bool = False, sound_dir: str | Path | None = None,
+                 search_paths=None):
+        from c_game_engine_tpu_torch.compiler.models import DEFAULT_SEARCH_PATHS
         from c_game_engine_tpu_torch.audio.mixer import empty_audio
         from c_game_engine_tpu_torch.render.dprint import DPrintConsole
 
         self.map_dir = Path(map_dir)
+        self.search_paths = DEFAULT_SEARCH_PATHS if search_paths is None else search_paths
         self.device = torch.device(device)
         # on-frame debug text (DPrint.h ENABLE_DEBUG_PRINT) + the last-2s
         # message console (--show-console, DPrintConsole.c:84-91)
@@ -130,37 +136,63 @@ class GameApp:
 
     # ---- maps -------------------------------------------------------------
     def list_levels(self) -> list[str]:
-        """The maps of map_dir (LevelSelectState.c:126 enumerates map/*.gmap)."""
-        return sorted(p.stem for p in self.map_dir.glob("*.npz")
-                      if not p.stem.endswith("_bundle") and p.with_suffix(".json").exists())
+        """The maps of map_dir: its `*.gmap` sources (LevelSelectState.c:126
+        enumerates map/*.gmap) and its committed maps."""
+        committed = {p.stem for p in self.map_dir.glob("*.npz")
+                     if not p.stem.endswith("_bundle") and p.with_suffix(".json").exists()}
+        return sorted(committed | {p.stem for p in self.map_dir.glob("*.gmap")})
+
+    def _source(self, name: str) -> Path | None:
+        """The `.gmap`/`.json` source a level compiles from, or None for a
+        committed map."""
+        if "/" in name or name.endswith((".gmap", ".json")):
+            return Path(name)
+        path = self.map_dir / f"{name}.gmap"
+        return path if path.is_file() else None
 
     def _map(self, name: str):
         if name not in self._cmap_cache:
-            self._cmap_cache[name] = load_map(self.map_dir / f"{name}.npz", self.map_dir / f"{name}.json",
-                                              self.device)
+            src = self._source(name)
+            if src is not None:
+                from c_game_engine_tpu_torch.compiler.cache import load_compiled
+
+                self._cmap_cache[name], bundle = load_compiled(src, self.search_paths, device=self.device)
+                self._bundle_cache[name] = self._with_assets(bundle)
+            else:
+                self._cmap_cache[name] = load_map(self.map_dir / f"{name}.npz", self.map_dir / f"{name}.json",
+                                                  self.device)
         return self._cmap_cache[name]
 
+    def _with_assets(self, bundle):
+        """The bundle with the synthetic HUD, UI and viewmodel assets when
+        they are asked for and its atlas holds the textures they point at."""
+        from c_game_engine_tpu_torch.render import synthetic_hud as sh
+
+        if self.synthetic_assets and sh.TEXTURES <= set(bundle.tex_names):
+            return sh.with_synthetic_hud(bundle)
+        return bundle
+
     def has_bundle(self, name: str) -> bool:
-        return name in self._bundle_cache or (self.map_dir / f"{name}_bundle.npz").exists()
+        """Whether the level's bundle is on file or compiles with it (a
+        committed map without one gets it built when drawn)."""
+        return (self.map_dir / f"{name}_bundle.npz").exists() or self._source(name) is not None
 
     def _bundle_for(self, name: str):
-        """(map, bundle) of a level; NotImplementedError for a map without a
-        committed bundle."""
+        """(map, bundle) of a level: its compiled or committed bundle, or one
+        built for a committed map without a bundle."""
+        cmap = self._map(name)
         if name not in self._bundle_cache:
-            from c_game_engine_tpu_torch.render.bundle import load_bundle
+            from c_game_engine_tpu_torch.render.bundle import build_render_bundle, load_bundle
 
-            if not self.has_bundle(name):
-                raise NotImplementedError(
-                    f"map {name} has no committed render bundle: building one needs the bundle builder "
-                    "(render/bundle.py::build_render_bundle, ROADMAP §1 item 10)")
-            bundle = load_bundle(self.map_dir / f"{name}_bundle.npz", self.map_dir / f"{name}_bundle.json",
-                                 self._map(name))
-            if self.synthetic_assets:
-                from c_game_engine_tpu_torch.render.synthetic_hud import with_synthetic_hud
+            if (self.map_dir / f"{name}_bundle.npz").exists():
+                bundle = load_bundle(self.map_dir / f"{name}_bundle.npz", self.map_dir / f"{name}_bundle.json", cmap)
+            else:
+                from c_game_engine_tpu_torch.compiler.models import AssetResolver
 
-                bundle = with_synthetic_hud(bundle)
-            self._bundle_cache[name] = bundle
-        return self._map(name), self._bundle_cache[name]
+                cmap.aux.setdefault("resolver", AssetResolver(self.search_paths))
+                bundle = build_render_bundle(cmap)
+            self._bundle_cache[name] = self._with_assets(bundle)
+        return cmap, self._bundle_cache[name]
 
     def _ui_bundle(self):
         """The bundle whose atlas and UiAssets the screens draw with."""
@@ -364,15 +396,18 @@ class GameApp:
 
     def _bank(self):
         """The UI sounds' bank (BUILTIN_SOUNDS resolved under sound_dir, or
-        the default asset paths) and its frame counts."""
-        if self._ui_bank is None:
-            from c_game_engine_tpu_torch.audio.bank import BUILTIN_SOUNDS, build_sound_bank
-            from c_game_engine_tpu_torch.compiler.models import AssetResolver
+        the app's search paths) and their frame counts."""
+        from c_game_engine_tpu_torch.audio.bank import BUILTIN_SOUNDS, build_sound_bank
+        from c_game_engine_tpu_torch.compiler.compile import _sound_lengths
+        from c_game_engine_tpu_torch.compiler.models import AssetResolver
 
-            resolver = AssetResolver([self.sound_dir]) if self.sound_dir else AssetResolver()
+        resolver = AssetResolver([self.sound_dir]) if self.sound_dir else AssetResolver(self.search_paths)
+        if self._ui_bank is None:
             self._ui_bank = build_sound_bank(resolver, BUILTIN_SOUNDS, self.device)
         if self._ui_lengths is None:
-            self._ui_lengths = self._ui_bank.table[:, 1].clone()
+            # what the compiler gives a level (CompiledMap.sound_len), as the
+            # JAX app reads them
+            self._ui_lengths = torch.as_tensor(_sound_lengths(resolver, BUILTIN_SOUNDS), device=self.device)
         return self._ui_bank
 
     def _play_ui(self, name: str, category: int | None = None):

@@ -117,21 +117,29 @@ class BatchedSim:
         return self.cmap.aux["name"] if self.cmap.aux else "map"
 
 
-def load_named_map(map_name: str, device="cuda"):
-    """A committed map (c_game_engine_tpu_torch/maps/<name>) or an exported
-    map's .npz path (its .json beside it) on `device`: the port has no map
-    compiler yet."""
+def load_named_map(map_name: str, device="cuda", search_paths=None):
+    """A map on `device`: a `.gmap` or editor-JSON source path, compiled by
+    the port's compiler through the compile cache (compiler/cache.py; its
+    assets resolved under `search_paths`, default
+    compiler/models.py::DEFAULT_SEARCH_PATHS), as the JAX make_sim compiles
+    its source; an exported map's .npz path (its .json beside it); or the
+    name of a committed map (c_game_engine_tpu_torch/maps/<name>)."""
     path = Path(map_name)
+    if path.suffix in (".gmap", ".json"):
+        from c_game_engine_tpu_torch.compiler.cache import load_compiled
+
+        return load_compiled(path, search_paths, with_bundle=False, device=device)[0]
     if path.suffix != ".npz":
         path = MAPS / f"{map_name}.npz"
     return load_map(path, path.with_suffix(".json"), device)
 
 
-def make_sim(map_name: str, batch: int = 4096, jit: bool = True, device="cuda") -> BatchedSim:
-    """BatchedSim on a map of `load_named_map`. jit=True steps and rolls out
-    through the CUDA tick graph and raises on a CPU device; jit=False runs
-    the eager tick."""
-    cmap = load_named_map(map_name, device)
+def make_sim(map_name: str, batch: int = 4096, jit: bool = True, device="cuda", search_paths=None) -> BatchedSim:
+    """BatchedSim on a map of `load_named_map` (a `.gmap` or `.json` source
+    path is compiled, a name loads its committed files). jit=True steps and
+    rolls out through the CUDA tick graph and raises on a CPU device;
+    jit=False runs the eager tick."""
+    cmap = load_named_map(map_name, device, search_paths)
     if jit and cmap.device.type != "cuda":
         raise ValueError(f"make_sim(jit=True) captures a CUDA graph; device {cmap.device} has none "
                          "(pass jit=False for the eager tick)")

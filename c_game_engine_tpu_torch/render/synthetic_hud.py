@@ -36,6 +36,8 @@ UI_SLOTS = ("texture/wall.gtex", "texture/actor/door.gtex", "texture/floor.gtex"
             "texture/actor/bluecoin.gtex", "texture/actor/coin.gtex", "texture/floor.gtex",
             "texture/actor/laser.gtex", "texture/sky.gtex", "texture/actor/door.gtex", "texture/actor/coin.gtex")
 SMALL_FONT = "texture/floor.gtex"
+# every texture the assets point at
+TEXTURES = frozenset((YCOIN, BCOIN, CROSSHAIR, FONT, VIEWMODEL, SMALL_FONT) + UI_SLOTS)
 
 
 def _font_table(width_of):

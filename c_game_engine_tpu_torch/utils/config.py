@@ -132,10 +132,11 @@ class GameConfig:
 @dataclass
 class RunConfig:
     """CLI for batched runs (the Arguments.h:10-45 flags that still apply
-    headless). `map` defaults to the committed map `arena`, which
-    models/sim.py::make_sim loads: the JAX package's default is the
-    reference's test.gmap, which the port cannot compile until it has a
-    map compiler."""
+    headless). `map` is a committed map's name or a `.gmap` or editor-JSON
+    source path (models/sim.py::make_sim compiles a source). It defaults to
+    the committed map `arena`: the JAX package's default is the reference's
+    test.gmap, which is absent from this repository (its assets are not
+    shipped), not one the port's compiler cannot read."""
 
     map: str = "arena"
     batch: int = 4096

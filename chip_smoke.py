@@ -6,6 +6,28 @@ Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit; no CUDA device is a failure;
   2. build the hand-written kernels from c_game_engine_tpu_torch/csrc/
      with nvcc for sm_90a, one nvcc per source, all at once;
+  2b. the compiler phase (`compiler_phase`): tests/torch_map_sources.py
+     writes the four maps' sources (.gmap files and their assets) and an
+     editor-JSON map (rooms.json) under build/map_sources/; the port's
+     compiler compiles the four maps on the card and its builder builds
+     their bundles there, each timed, and every leaf of arena, arena_bodies,
+     arena_lit and arena_orb and of the two render maps' bundles is held to
+     the committed files bit for bit (the lightmap, which a .gmap stores as
+     RGBA16F, to the committed lightmap rounded to float16); every later
+     phase runs on these compiled maps and bundles, and the CPU sides of
+     the reference checks on the same sources compiled on the CPU. Then
+     rooms.json is compiled with its lightmap baked on the card and on the
+     CPU (bake seconds of each), the two lightmaps within 1e-4 on at least
+     99.9% of luxels; 30 ticks x 256 envs of it go through the reference
+     check and 4 envs at 256 x 256 through the render reference check,
+     with K4 launching. halls.json, a full-size editor map (514 sectors,
+     117,512 luxels, 5,498 occluders, 8 lights), is compiled with its whole
+     lightmap baked on the card (seconds, luxels/s) and
+     every 101st surface baked again on the CPU, its luxels at the same
+     bar. The compile cache is timed cold and on a hit (arena_lit.gmap and
+     rooms.json, with their bundles), then make_sim of a .gmap and a .json
+     path goes through it. No module of jax, jaxlib, flax or the JAX
+     package may be loaded by then;
   3. kernel phase: the capsule-resolve (K1) and ray (K2) kernels against
      their plain PyTorch versions on the card, on the inputs a tick of a
      4096-env run of the arena map hands them, bit for bit (K1 on its main
@@ -46,14 +68,14 @@ Phases (any failure exits non-zero and prints no result line):
      row against the eager loop bit for bit;
   6. main paths, through the tick graph, each with every device count
      (kernel launches, gate ticks; utils/counters.py) reset just before
-     and read just after: load_map -> reset_batch(4096) -> rollout of 240
+     and read just after: compile_map -> reset_batch(4096) -> rollout of 240
      ticks of the bench.py stream (hold W, look += 0.01), first on arena
      (K1, K2), then on arena_bodies (K1, K2, K3; K3 launches once on each
      tick on which some body is awake, the rigid-body step's gate); then
      240 replays of arena and 8 of arena_bodies under torch.profiler: K1,
      K2 and K3 launches counted in the trace against the ticks and gate
      counts, and no host sync and no Memcpy HtoD in the replays; then
-     the render path: load_map + load_bundle of arena_lit ->
+     the render path: compile_map + build_render_bundle of arena_lit ->
      reset_batch(64) -> 60 ticks of the stream -> the 4-heading yaw sweep
      of benchmarks/run_all.py::bench_render at 256 x 256, once as warm-up
      and once timed (K4 twice per frame batch: pass 1 and the reveal);
@@ -119,6 +141,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -131,6 +154,7 @@ BATCH, TICKS = 4096, 240
 # still (a replay traces about 31,600 kernels, and a 24-replay window lost
 # events)
 BODIES_EAGER_TICKS, PROFILE_BODIES_TICKS = 60, 8
+HALLS_EVERY = 101  # halls.json: every 101st surface is baked on the CPU too
 LONG_RUN = ("arena", 40, 20, 256)  # map, ticks, segment, envs
 DEMO = ("arena_lit", 2, 30)  # map, frames, ticks
 # the audio phase: graphed ticks with the synthetic sounds, then one mix of
@@ -686,20 +710,19 @@ def render_big_kernel_phase(cmap, bundle, state):
                             compare, k5_bound)}
 
 
-def render_reference_phase(name, cmap, bundle):
+def render_reference_phase(name, cmap, bundle, cpu):
     """4 envs of the map `name` after 30 ticks of the stream, each at its
     own sweep heading, rendered on the card and by the plain path on the
-    CPU."""
+    CPU (`cpu`: the same map and bundle there)."""
     import math
 
     import torch
 
     from c_game_engine_tpu_torch.core.state import tree_map
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
-    from c_game_engine_tpu_torch.render.bundle import load_render_map
     from c_game_engine_tpu_torch.render.raster import render_batch
 
-    cm_cpu, rb_cpu = load_render_map(name, "cpu")
+    cm_cpu, rb_cpu = cpu
     st = rollout(cm_cpu, reset_batch(cm_cpu, HEADINGS), bench_actions(30, HEADINGS, "cpu"))
     st = st.replace(player=st.player.replace(
         yaw=st.player.yaw + torch.arange(HEADINGS) * (2.0 * math.pi / HEADINGS)))
@@ -804,7 +827,7 @@ def render_main_path(cmap, bundle, state, kernel):
     return counts, dt, dt_eager, covs
 
 
-def options_reference_phase(cmap, bundle):
+def options_reference_phase(cmap, bundle, cpu):
     """4 envs of arena_lit after 30 ticks, each at its own sweep heading,
     rendered with each option of render/graph_check.py's OPTIONS on the
     card (through its graph, held to render_batch_eager bit for bit) and
@@ -818,11 +841,10 @@ def options_reference_phase(cmap, bundle):
     from c_game_engine_tpu_torch.core.state import tree_map
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
     from c_game_engine_tpu_torch.render import raster as R
-    from c_game_engine_tpu_torch.render.bundle import load_render_map
     from c_game_engine_tpu_torch.render.graph_check import OPTIONS, graph_against_eager
     from c_game_engine_tpu_torch.render.synthetic_hud import hud_states, with_synthetic_hud
 
-    cm_cpu, rb_cpu = load_render_map("arena_lit", "cpu")
+    cm_cpu, rb_cpu = cpu
     st = rollout(cm_cpu, reset_batch(cm_cpu, HEADINGS), bench_actions(30, HEADINGS, "cpu"))
     st = st.replace(player=st.player.replace(
         yaw=st.player.yaw + torch.arange(HEADINGS) * (2.0 * math.pi / HEADINGS)))
@@ -1331,6 +1353,172 @@ def app_phase(card):
             "viewer": viewer, "viewer_process_s": play_s}, counts
 
 
+
+def compiler_phase():
+    """Write the maps' sources, compile them with the port on the card (and
+    on the CPU for the reference checks), build the bundles, and hold the
+    four maps and two bundles to the committed files. Returns ({name:
+    {"cuda": (cmap, bundle), "cpu": (cmap, bundle)}}, figures); rooms.json
+    is among the maps, compiled on each device with its own bake."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_map_sources as S
+
+    from c_game_engine_tpu_torch.assets.gmap import decode_gmap
+    from c_game_engine_tpu_torch.compiler import sectors
+    from c_game_engine_tpu_torch.compiler.compile import compile_map
+    from c_game_engine_tpu_torch.core.state import map_to_numpy
+    from c_game_engine_tpu_torch.render.bundle import build_render_bundle, bundle_to_numpy
+
+    t0 = time.perf_counter()
+    src = S.write_sources(ROOT / "build" / "map_sources")
+    sp = [src["assets"]]
+    figures = {"write_sources_s": time.perf_counter() - t0}
+    maps_dir = ROOT / "c_game_engine_tpu_torch" / "maps"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def held(label, got, stem, float16):
+        with np.load(maps_dir / f"{stem}.npz") as z:
+            want = {k: z[k] for k in z.files}
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"compiler phase {label}: leaves {sorted(got)} != {sorted(want)}")
+        for k, w in want.items():
+            g = got[k]
+            if k in float16:
+                w = w.astype(np.float16).astype(w.dtype)
+            if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+                raise AssertionError(f"compiler phase {label}: leaf {k} differs from {stem}.npz")
+        return len(want)
+
+    out, leaves = {}, 0
+    for name in S.MAPS:
+        gm = decode_gmap(src[name])
+        cmap, c_s = timed(lambda: compile_map(gm, name=name, search_paths=sp, device="cuda"))
+        bundle, b_s = timed(lambda: build_render_bundle(cmap))
+        figures[name] = {"compile_map_s": c_s, "build_render_bundle_s": b_s}
+        got, aux = map_to_numpy(cmap)
+        leaves += held(name, got, name, {k for m, k in S.FLOAT16_LEAVES if m == name})
+        with open(maps_dir / f"{name}.json") as f:
+            if json.loads(json.dumps(aux)) != json.load(f):
+                raise AssertionError(f"compiler phase {name}: aux differs from {name}.json")
+        if name in S.RENDER_MAPS:
+            b_leaves, static = bundle_to_numpy(bundle)
+            leaves += held(f"{name} bundle", b_leaves, f"{name}_bundle",
+                           {k for m, k in S.FLOAT16_LEAVES if m == f"{name}_bundle"})
+            with open(maps_dir / f"{name}_bundle.json") as f:
+                if json.loads(json.dumps(static)) != json.load(f):
+                    raise AssertionError(f"compiler phase {name}: bundle static fields differ")
+        cpu_map = compile_map(gm, name=name, search_paths=sp, device="cpu")
+        out[name] = {"cuda": (cmap, bundle), "cpu": (cpu_map, build_render_bundle(cpu_map))}
+        print(f"compiler {name}: compile_map {c_s:.4f} s, build_render_bundle {b_s:.4f} s on the card; "
+              f"{aux['num_real_tris']} triangles, {len(aux['actor_names'])} actors, bundle "
+              f"{bundle.live_tri_bound} live rows", flush=True)
+    print(f"compiler phase: {leaves} leaves of the four maps and the two bundles compiled on the card equal the "
+          f"committed files (the lightmap as the .gmap's float16)", flush=True)
+
+    # the editor-JSON map, its lightmap baked on each device
+    bakes = []
+    real_bake = sectors.bake_lightmap
+
+    def timed_bake(surfaces, atlas_size, *a, **k):
+        lm, dt = timed(lambda: real_bake(surfaces, atlas_size, *a, **k))
+        bakes.append({"device": str(k["device"]), "s": dt, "args": (surfaces, atlas_size, *a),
+                      "luxels": int(sum(sf.lm_size_luxels[0] * sf.lm_size_luxels[1] for sf in surfaces)),
+                      "lightmap": lm})
+        return lm
+
+    sectors.bake_lightmap = timed_bake
+    try:
+        path = str(src["rooms"])
+        rooms, rooms_s = timed(lambda: compile_map(path, search_paths=sp, device="cuda"))
+        rooms_cpu, rooms_cpu_s = timed(lambda: compile_map(path, search_paths=sp, device="cpu"))
+        halls_s = timed(lambda: sectors.compile_map_source(str(src["halls"]), device="cuda"))[1]
+    finally:
+        sectors.bake_lightmap = real_bake
+    card_bake, cpu_bake, halls_bake = bakes
+    diff = np.abs(card_bake["lightmap"] - cpu_bake["lightmap"]).max(-1)
+    share = float((diff <= 1e-4).mean())
+    if not share >= 0.999 or not np.array_equal(rooms.lightmap.cpu().numpy(), card_bake["lightmap"]):
+        raise AssertionError(f"compiler phase rooms.json: {share:.6f} of luxels within 1e-4 of the CPU bake")
+    figures["rooms"] = {
+        "compile_map_s": rooms_s, "compile_map_cpu_s": rooms_cpu_s, "luxels": card_bake["luxels"],
+        "bake_s": card_bake["s"], "bake_cpu_s": cpu_bake["s"],
+        "luxel_share_within_1e-4": share, "luxel_max_abs_diff": float(diff.max()),
+        "occluders": int(rooms.aux["num_real_tris"]), "lights": int(rooms.point_lights.shape[0])}
+    out["rooms"] = {"cuda": (rooms, build_render_bundle(rooms)), "cpu": (rooms_cpu, build_render_bundle(rooms_cpu))}
+
+    # halls.json, the full-size editor map: its whole bake on the card, held
+    # to the CPU port's bake of every HALLS_EVERY-th surface alone (a
+    # luxel's value depends on its own sample points only)
+    surfaces, atlas_size, lights, tris = halls_bake["args"]
+    sub = surfaces[::HALLS_EVERY]
+    cpu_lm, sub_s = timed(lambda: real_bake(sub, atlas_size, lights, tris, device="cpu"))
+    mask = np.zeros(cpu_lm.shape[:2], bool)
+    for sf in sub:
+        (x0, y0), (w, h) = sf.lm_rect, sf.lm_size_luxels
+        mask[y0 : y0 + h, x0 : x0 + w] = True
+    h_diff = np.abs(halls_bake["lightmap"] - cpu_lm).max(-1)[mask]
+    h_share = float((h_diff <= 1e-4).mean())
+    lit = float((halls_bake["lightmap"][mask][:, :3].max(-1) > 0).mean())
+    if not h_share >= 0.999 or not lit > 0.1:
+        raise AssertionError(f"compiler phase halls.json: {h_share:.6f} of {int(mask.sum())} luxels within 1e-4 "
+                             f"of the CPU bake, {lit:.3f} lit")
+    figures["halls"] = {
+        "compile_map_source_s": halls_s, "surfaces": len(surfaces), "luxels": halls_bake["luxels"],
+        "occluders": len(tris), "lights": len(lights), "bake_s": halls_bake["s"],
+        "luxels_per_s": halls_bake["luxels"] / halls_bake["s"],
+        "cpu_surfaces": len(sub), "cpu_luxels": int(mask.sum()), "cpu_bake_s": sub_s,
+        "cpu_luxels_per_s": int(mask.sum()) / sub_s, "luxel_share_within_1e-4": h_share,
+        "luxel_max_abs_diff": float(h_diff.max()), "lit_share": lit}
+
+    # the compile cache, cold and hit, in a directory of this run's own;
+    # then make_sim of a .gmap and a .json path through it: the tick graph
+    # on the card, equal to the same rollout on the phase's maps
+    from c_game_engine_tpu_torch.compiler import cache
+    from c_game_engine_tpu_torch.core.state import tree_leaves
+    from c_game_engine_tpu_torch.models.sim import bench_actions, make_sim, reset_batch, rollout
+
+    cache.CACHE_DIR = ROOT / "build" / "map_cache"
+    shutil.rmtree(cache.CACHE_DIR, ignore_errors=True)
+    for key in ("arena_lit", "rooms"):
+        cold = timed(lambda: cache.load_compiled(src[key], sp, device="cuda"))[1]
+        hit = timed(lambda: cache.load_compiled(src[key], sp, device="cuda"))[1]
+        figures[key]["load_compiled_cold_s"], figures[key]["load_compiled_hit_s"] = cold, hit
+        print(f"compiler cache {key}: load_compiled with its bundle {cold:.4f} s cold, {hit:.4f} s from the cache",
+              flush=True)
+    for key, ref in (("arena", out["arena"]["cuda"][0]), ("rooms", rooms)):
+        sim = make_sim(str(src[key]), batch=256, search_paths=sp)
+        acts = bench_actions(30, 256, "cuda")
+        got, want = sim.rollout(sim.reset(), acts), rollout(ref, reset_batch(ref, 256), acts)
+        differ = [k for (k, a), (_, b) in zip(tree_leaves(got), tree_leaves(want)) if not torch.equal(a, b)]
+        if differ or int(got.tick[0]) != 30:
+            raise AssertionError(f"compiler phase make_sim({key}): differs from the compiled map's rollout in {differ}")
+    print("compiler make_sim: arena.gmap and rooms.json through the compile cache, 30 ticks x 256 envs through the "
+          "tick graph, equal to the phase's maps bit for bit", flush=True)
+    f = figures["rooms"]
+    print(f"compiler rooms.json: {f['luxels']} luxels x 4 samples, {f['lights']} lights, {f['occluders']} occluders; "
+          f"bake {f['bake_s']:.4f} s on the card, {f['bake_cpu_s']:.4f} s on the CPU; {share:.6f} of luxels within "
+          f"1e-4 of the CPU bake (largest difference {f['luxel_max_abs_diff']:.3g})", flush=True)
+    f = figures["halls"]
+    print(f"compiler halls.json: compile_map_source {f['compile_map_source_s']:.4f} s on the card; {f['surfaces']} "
+          f"surfaces, {f['luxels']} luxels x 4 samples, {f['lights']} lights, {f['occluders']} occluders: bake "
+          f"{f['bake_s']:.4f} s on the card, {f['luxels_per_s']:.1f} luxels/s; the CPU's bake of {f['cpu_surfaces']} "
+          f"of its surfaces ({f['cpu_luxels']} luxels) {f['cpu_bake_s']:.4f} s, {f['cpu_luxels_per_s']:.1f} "
+          f"luxels/s; {h_share:.6f} of those luxels within 1e-4 (largest difference "
+          f"{f['luxel_max_abs_diff']:.3g}), {lit:.3f} of them lit", flush=True)
+    jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "c_game_engine_tpu"))
+    if jax_like:
+        raise AssertionError(f"compiler phase loaded {jax_like[:5]}")
+    return out, figures
+
 def main() -> int:
     import torch
 
@@ -1339,11 +1527,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from c_game_engine_tpu_torch.bench import card_line
-    from c_game_engine_tpu_torch.core.state import load_map
     from c_game_engine_tpu_torch.models.graph_check import check_collect, check_gate_state, gate_states
     from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
     from c_game_engine_tpu_torch.ops import build
-    from c_game_engine_tpu_torch.render.bundle import load_render_map
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1354,11 +1540,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(KERNELS)} kernels and the graph's if-node "
           f"helper in parallel (nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
-    maps = ROOT / "c_game_engine_tpu_torch" / "maps"
-    load = lambda name, dev: load_map(maps / f"{name}.npz", maps / f"{name}.json", dev)
-    arena, bodies_map = load("arena", "cuda"), load("arena_bodies", "cuda")
-    lit, lit_bundle = load_render_map("arena_lit", "cuda")
-    orb, orb_bundle = load_render_map("arena_orb", "cuda")
+    compiled, compiler = compiler_phase()
+    arena, bodies_map = compiled["arena"]["cuda"][0], compiled["arena_bodies"]["cuda"][0]
+    lit, lit_bundle = compiled["arena_lit"]["cuda"]
+    orb, orb_bundle = compiled["arena_orb"]["cuda"]
 
     # kernel phases on real states: a few ticks of the bench stream first
     state = rollout(arena, reset_batch(arena, BATCH), bench_actions(8, BATCH, "cuda"))
@@ -1370,11 +1555,23 @@ def main() -> int:
     orb_state = rollout(orb, reset_batch(orb, RENDER_BATCH), bench_actions(RENDER_TICKS, RENDER_BATCH, "cuda"))
     report.append(render_big_kernel_phase(orb, orb_bundle, orb_state))
 
-    reference_phase("arena", arena, load("arena", "cpu"))
-    reference_phase("arena_bodies", bodies_map, load("arena_bodies", "cpu"))
-    render_reference_phase("arena_lit", lit, lit_bundle)
-    render_reference_phase("arena_orb", orb, orb_bundle)
-    options_off = options_reference_phase(lit, lit_bundle)
+    reference_phase("arena", arena, compiled["arena"]["cpu"][0])
+    reference_phase("arena_bodies", bodies_map, compiled["arena_bodies"]["cpu"][0])
+    render_reference_phase("arena_lit", lit, lit_bundle, compiled["arena_lit"]["cpu"])
+    render_reference_phase("arena_orb", orb, orb_bundle, compiled["arena_orb"]["cpu"])
+    options_off = options_reference_phase(lit, lit_bundle, compiled["arena_lit"]["cpu"])
+    # the editor-JSON map compiled and baked on the card: the tick and one
+    # sweep against the CPU, with K4 launching
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
+    from c_game_engine_tpu_torch.utils import counters
+
+    rooms, rooms_bundle = compiled["rooms"]["cuda"]
+    reference_phase("rooms.json", rooms, compiled["rooms"]["cpu"][0])
+    counters.reset()
+    render_reference_phase("rooms.json", rooms, rooms_bundle, compiled["rooms"]["cpu"])
+    compiler["rooms"]["launches"] = kernel_counts()
+    if compiler["rooms"]["launches"]["raster_tiles"] < 2 or compiler["rooms"]["launches"]["raster_tiles_big"]:
+        raise AssertionError(f"rooms.json render: launches {compiler['rooms']['launches']}")
 
     # the tick graph against the eager loop, on the bench stream and on
     # states that open and close each gate
@@ -1482,7 +1679,7 @@ def main() -> int:
                           p: {k: v[k] for k in ("host_syncs_per_tick", "memcpy_htod_per_tick", "memcpy_dtoh_per_tick",
                                                 "device_ms_per_tick", "wall_ms_per_tick", "busy_share",
                                                 "host_per_tick")} for p, v in profiles.items()},
-                      "audio": audio, "mesh": mesh, "action_stream": actions, **extras}))
+                      "audio": audio, "mesh": mesh, "action_stream": actions, "compiler": compiler, **extras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -43,17 +43,24 @@ def test_viewer_main_runs_headless(tmp_path, capsys):
 
 
 def test_app_level_without_a_bundle_ticks_but_does_not_draw():
-    """arena has no committed bundle: it loads and ticks, its in-game
-    frame raises NotImplementedError naming the bundle builder (ROADMAP §1
-    item 10), and the menu still draws with arena_lit's UI atlas."""
+    """arena has no committed bundle: it loads and ticks, and drawing it
+    builds its bundle with the port's builder
+    (render/bundle.py::build_render_bundle; before the builder was ported
+    the in-game frame raised NotImplementedError): the actors' wall quads
+    and the sky colour, no map mesh. The menu still draws with arena_lit's
+    UI atlas, and a map that does not exist falls back to the menu."""
     from c_game_engine_tpu_torch.models.game import GameApp, Screen
 
     app = GameApp(device="cpu", initial_map="arena", synthetic_assets=True)
     assert app.screen == Screen.IN_GAME and app.list_levels() == ["arena", "arena_bodies", "arena_lit", "arena_orb"]
     app.tick()
     assert int(app.state.tick[0]) == 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        app.render_frame(128, 128)
+    assert not app.has_bundle("arena")
+    frame = app.render_frame(128, 128)
+    _, bundle = app._bundle_for("arena")
+    assert frame.shape == (128, 128, 3) and bool(frame.isfinite().all())
+    assert bundle.map_pos.shape[0] == 0 and bundle.tex_names[:len(app.cmap.aux["texture_names"])] == tuple(
+        app.cmap.aux["texture_names"])
     app.quit_to_menu()
     assert app.render_frame(128, 128).abs().sum() > 0
     app.load_level("no_such_map")

@@ -15,6 +15,8 @@ integer and bool leaf exact (door state, signals, coins, audio handles).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 
@@ -145,9 +147,13 @@ def test_dynamic_bodies_match_jax(tmp_path):
     assert -0.52 < P["actors.pos"][0, john, 1] < -0.48  # stands on the floor (-1 + 0.5)
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Importing every module of the port loads neither jax nor the JAX
-    package, and leaves TF32 off."""
+    package, and leaves TF32 off; nor does running its map compiler: the
+    sources of tests/torch_map_sources.py written, rooms.json through
+    compile_map_source (its bake) and compile_map, arena_lit.gmap through
+    compile_map and build_render_bundle, and load_compiled through the
+    compile cache (whose JAX counterpart imports jax inside a function)."""
     import subprocess
     import sys
     from pathlib import Path
@@ -157,10 +163,23 @@ def test_port_never_imports_jax():
         "import c_game_engine_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'c_game_engine_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'c_game_engine_tpu'))\n"
+        "from tests.torch_map_sources import write_sources\n"
+        "from c_game_engine_tpu_torch.compiler.cache import load_compiled\n"
+        "from c_game_engine_tpu_torch.compiler.compile import compile_map\n"
+        "from c_game_engine_tpu_torch.compiler.sectors import compile_map_source\n"
+        "from c_game_engine_tpu_torch.render.bundle import build_render_bundle\n"
+        f"src = write_sources({str(tmp_path / 'src')!r})\n"
+        "sp = [src['assets']]\n"
+        "assert compile_map_source(str(src['rooms']), device='cpu').lightmap.max() > 0\n"
+        "assert compile_map(str(src['rooms']), search_paths=sp, device='cpu').aux['num_dynamic'] == 1\n"
+        "assert build_render_bundle(compile_map(str(src['arena_lit']), search_paths=sp, device='cpu')).live_tri_bound > 0\n"
+        "assert load_compiled(src['arena'], sp, device='cpu')[1] is not None\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'c_game_engine_tpu'))\n"
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32\n"
     )
     root = Path(__file__).resolve().parents[1]
-    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
+    env = dict(os.environ, CGE_TORCH_MAP_CACHE_DIR=str(tmp_path / "cache"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, env=env)
     assert out.returncode == 0, out.stderr
+    assert sorted(q.suffix for q in (tmp_path / "cache").iterdir()) == [".json", ".json", ".npz", ".npz"]

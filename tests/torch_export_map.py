@@ -134,8 +134,27 @@ def arena_tris() -> np.ndarray:
     return np.asarray(tris, np.float32)
 
 
-def arena_actors():
-    from tests.worldgen import P_bool, P_color, P_float, P_int, P_str, P_vec2, actor
+def _kit(kit):
+    """The constructors the map builders below use: `tests/worldgen.py`
+    (the JAX package's GMap, Param and Model types) by default, or a
+    namespace with the same names (tests/torch_map_sources.py::PORT_KIT,
+    the port's types, which writes the maps' sources without JAX)."""
+    if kit is None:
+        import types
+
+        import tests.worldgen as wg
+        from c_game_engine_tpu.assets.codecs import CollisionModelType, Model, ModelLod, ModelShader
+        from c_game_engine_tpu.assets.gmap import MapModel
+
+        kit = types.SimpleNamespace(**vars(wg), MapModel=MapModel, Model=Model, ModelLod=ModelLod,
+                                    CollisionModelType=CollisionModelType, ModelShader=ModelShader)
+    return kit
+
+
+def arena_actors(kit=None):
+    k = _kit(kit)
+    P_bool, P_color, P_float, P_int, P_str, P_vec2, actor = (k.P_bool, k.P_color, k.P_float, k.P_int, k.P_str,
+                                                             k.P_vec2, k.actor)
 
     sx, _, sz = SPAWN
     return [
@@ -218,9 +237,9 @@ def _ramp_y(z):
     return top * (RAMP[3] - z) / (RAMP[3] - RAMP[2])
 
 
-def body_actors():
+def body_actors(kit=None):
     """The 13 dynamic bodies of `arena_bodies`."""
-    from tests.worldgen import actor
+    actor = _kit(kit).actor
 
     out = []
     for (x, z), n in ((STACK3_XZ, 3), (STACK4_XZ, 4)):
@@ -267,10 +286,9 @@ def compile_arena():
     return compile_map(_arena_gmap(arena_actors()), name="arena")
 
 
-def _arena_gmap(actors, **render):
-    from c_game_engine_tpu.assets.gmap import GMap, MapCollisionMesh
-    from tests.worldgen import actor
-
+def _arena_gmap(actors, kit=None, **render):
+    k = _kit(kit)
+    GMap, MapCollisionMesh, actor = k.GMap, k.MapCollisionMesh, k.actor
     kw = dict(render_sky=False, sky_texture=None, models=[], lightmap=np.ones((1, 1, 4), np.float32))
     kw.update(render)
     return GMap(
@@ -356,10 +374,11 @@ def _texture_pixels():
     }
 
 
-def _sky_model():
+def _sky_model(kit=None):
     """A 12-triangle cube of half extent SKY_HALF, each face mapping the
     whole sky texture."""
-    from c_game_engine_tpu.assets.codecs import CollisionModelType, Model, ModelLod
+    k = _kit(kit)
+    CollisionModelType, Model, ModelLod = k.CollisionModelType, k.Model, k.ModelLod
 
     verts, idx = [], []
     for axis in range(3):
@@ -434,10 +453,10 @@ def _quad(verts, idx, corners, uvs):
     idx += [base, base + 1, base + 2, base, base + 2, base + 3]
 
 
-def arena_render_models():
+def arena_render_models(kit=None):
     """The render mesh as MapModels (floor, stone risers, walls), wound
     like the collision triangles (ccw seen from the visible side)."""
-    from c_game_engine_tpu.assets.gmap import MapModel
+    MapModel = _kit(kit).MapModel
 
     h = _corner_heights()
     n = 2 * HALF
@@ -557,11 +576,12 @@ def icosphere(subdiv):
     return tris
 
 
-def _orb_model():
+def _orb_model(kit=None):
     """The icosphere as a one-LOD, one-slot model: unshared vertices with
     spherical uv (4 repeats around, 2 pole to pole), white vertex colour
     and the outward normal."""
-    from c_game_engine_tpu.assets.codecs import CollisionModelType, Model, ModelLod, ModelShader
+    k = _kit(kit)
+    CollisionModelType, Model, ModelLod, ModelShader = k.CollisionModelType, k.Model, k.ModelLod, k.ModelShader
 
     unit = icosphere(ORB_SUBDIV).reshape(-1, 3)
     u = 4.0 * (0.5 + np.arctan2(unit[:, 2], unit[:, 0]) / (2 * np.pi))
@@ -587,8 +607,9 @@ def _orb_texture():
     return np.concatenate([rgb, np.ones((64, 64, 1))], -1).astype(np.float32)
 
 
-def orb_actor():
-    from tests.worldgen import P_byte, P_str, actor
+def orb_actor(kit=None):
+    k = _kit(kit)
+    P_byte, P_str, actor = k.P_byte, k.P_str, k.actor
 
     return actor("prop_model_static", ORB_POS, params={"model": P_str(ORB_MODEL), "collision": P_byte(0)})
 
