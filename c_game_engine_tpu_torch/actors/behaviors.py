@@ -3,8 +3,9 @@ and the per-class Update() phase (counterpart of
 c_game_engine_tpu/actors/behaviors.py; per-class citations there).
 
 Both are dense, class-masked code over every actor class, as in the JAX
-package. The laser raycasts are not here: step_batch casts them in the
-merged ray launch and passes laser_hit / laser_len in.
+package. step_batch casts the laser rays in its merged ray launch and
+passes laser_hit / laser_len in; a caller outside the tick may leave them
+out, and `compute_laser_rays` casts them.
 """
 
 from __future__ import annotations
@@ -13,13 +14,44 @@ import math
 
 import torch
 
-from c_game_engine_tpu_torch.actors.defs import ActorClass, DoorState, Output
+from c_game_engine_tpu_torch.actors.defs import ActorClass, ActorFlags, DoorState, Output
 from c_game_engine_tpu_torch.actors.handlers import first_set, door_set_state, remove_actors, set_col
 from c_game_engine_tpu_torch.actors.signals import fire
+from c_game_engine_tpu_torch.physics.batched import cast_rays_batched
 from c_game_engine_tpu_torch.physics.sensors import sensor_overlap
-from c_game_engine_tpu_torch.utils.mathx import lerp, quat_from_axis_angle
+from c_game_engine_tpu_torch.utils.mathx import const, lerp, quat_from_axis_angle, quat_rotate
 
 TPS = 60.0
+LASER_RANGE = 50.0  # Laser.c:127-158
+
+
+def compute_laser_rays(cmap, actors):
+    """Laser hitscan of every env outside the tick (the JAX function's
+    fallback for update_actors called outside step_batch, vmapped over the
+    env axis): `actors` leaves [B, N, ...]. Returns (hit [B, N], len [B, N]).
+
+    One cast_rays_batched call of B * N rays, env-major
+    (layout="interleaved", B_env=B): one K2 launch on the card. It copies
+    the JAX function's choices, which differ from the tick's merged launch
+    (core/step.py): each actor's ray starts at its position (no laser
+    height offset), no triple-laser static-only filter, and every actor
+    casts one, masked to lasers afterwards."""
+    b, n = actors.active.shape
+    dev = actors.pos.device
+    is_laser = cmap.cls == int(ActorClass.LASER)
+    fwd = quat_rotate(actors.quat, const((0.0, 0.0, -1.0), dev).expand(b, n, 3))
+    hit, frac, _ = cast_rays_batched(
+        cmap,
+        actors,
+        actors.pos.reshape(b * n, 3),
+        fwd.reshape(b * n, 3),
+        LASER_RANGE,
+        exclude=cmap.siparams[:, 1].repeat(b),
+        require_flags=int(ActorFlags.CAN_BLOCK_LASERS),
+        B_env=b,
+        layout="interleaved",
+    )
+    return hit.reshape(b, n) & is_laser, LASER_RANGE * frac.reshape(b, n)
 
 
 def contact_phase(cmap, state, fired, fired_pi):
@@ -136,9 +168,12 @@ def contact_phase(cmap, state, fired, fired_pi):
     return state, fired, fired_pi
 
 
-def update_actors(cmap, state, fired, fired_pi, delta, camera_pos, laser_hit, laser_len):
+def update_actors(cmap, state, fired, fired_pi, delta, camera_pos, laser_hit=None, laser_len=None):
     """Per-class Update() for every env. camera_pos [B, 3]; laser_hit /
-    laser_len [B, N] from the merged ray launch."""
+    laser_len [B, N] from the merged ray launch, or None to cast them
+    with `compute_laser_rays`."""
+    if laser_hit is None:
+        laser_hit, laser_len = compute_laser_rays(cmap, state.actors)
     actors = state.actors
     n = cmap.num_actors
     dev = cmap.device

@@ -112,14 +112,14 @@ def set_paused(audio: AudioState, ch_mask, value: bool):
     return audio.replace(paused=torch.where(live, value, audio.paused))
 
 
-def tick_advance(audio: AudioState, sound_len):
-    """Advance playing channels by one tick of samples; loop or free the
-    finished ones. sound_len is the [NS] per-sound frame table.
+def tick_advance(audio: AudioState, sound_len, samples: int = SAMPLES_PER_TICK):
+    """Advance playing channels by `samples` (one tick's by default); loop
+    or free the finished ones. sound_len is the [NS] per-sound frame table.
     Returns (audio, finished [B, C] bool)."""
     playing = (audio.snd >= 0) & ~audio.paused
     sidx = torch.clamp(audio.snd, 0, sound_len.shape[0] - 1).long()
     length = torch.clamp_min(sound_len[sidx], 1)
-    elapsed = torch.where(playing, audio.elapsed + SAMPLES_PER_TICK, audio.elapsed)
+    elapsed = torch.where(playing, audio.elapsed + samples, audio.elapsed)
     wraps = torch.where(playing, torch.div(elapsed, length, rounding_mode="floor"), 0)
     elapsed = elapsed - wraps * length
     inf = audio.loops < 0

@@ -628,7 +628,7 @@ def compile_map_source(path_or_dict, name: str = "mapsource", device="cuda") -> 
     )
 
 
-def bake_lightmap(surfaces, atlas_size, point_lights, occluder_tris, device="cuda"):
+def bake_lightmap(surfaces, atlas_size, point_lights, occluder_tris, bounces=0, device="cuda"):
     """Lightmap bake with the recovered editor model (compiler/baker.py):
     per-luxel color*brightness*visible*max(1/d^att - 1/range^att, 0) —
     cosine-free, shadow-rayed, unit gain — 2x2 supersampled per luxel so
@@ -637,7 +637,8 @@ def bake_lightmap(surfaces, atlas_size, point_lights, occluder_tris, device="cud
     call over every surface's four supersamples (a point's radiance does
     not depend on the batch it is shaded in, so the JAX module's per-surface
     calls padded to a fixed chunk are not needed), summed in the JAX
-    order."""
+    order. bounces > 0 adds the shader's one-bounce estimate (each point
+    with its surface's normal)."""
     from c_game_engine_tpu_torch.compiler.baker import GAIN, make_shader
 
     aw, ah = atlas_size
@@ -648,6 +649,7 @@ def bake_lightmap(surfaces, atlas_size, point_lights, occluder_tris, device="cud
     SS = np.array([[-0.25, -0.25], [0.25, -0.25], [-0.25, 0.25], [0.25, 0.25]], np.float32) * 0.8
 
     pts = []  # per surface [len(SS), h*w, 3]
+    normals = []  # per surface [len(SS), h*w, 3]
     for sf in surfaces:
         w, h = sf.lm_size_luxels
         pts_ss = []
@@ -668,9 +670,11 @@ def bake_lightmap(surfaces, atlas_size, point_lights, occluder_tris, device="cud
             world = world + missing + sf.normal * 1e-2
             pts_ss.append(world.reshape(-1, 3).astype(np.float32))
         pts.append(np.stack(pts_ss))
+        normals.append(np.broadcast_to(np.asarray(sf.normal, np.float32), pts[-1].shape))
     if not pts:
         return out
-    res = make_shader(point_lights, occluder_tris, device=device)(np.concatenate(pts, 1).reshape(-1, 3))
+    shade = make_shader(point_lights, occluder_tris, bounces=bounces, device=device)
+    res = shade(np.concatenate(pts, 1).reshape(-1, 3), np.concatenate(normals, 1).reshape(-1, 3))
     res = res.reshape(len(SS), -1, 3)
     acc_ss = res[0]
     for k in range(1, len(SS)):

@@ -2,9 +2,11 @@
 c_game_engine_tpu/core/actions_io.py).
 
 A [T, B] action stream (core/actions.py) is saved as a compact gzip
-container, so a long multi-thousand-env session replays exactly. This is
-the JAX package's pure-Python codec; its C codec (native.py) writes the
-same bytes and is not ported. Format:
+container, so a long multi-thousand-env session replays exactly. Two
+codecs write the same bytes: the C one of the native host library
+(native.py, csrc/cge_native.cpp cge_actions_*) and a pure-Python one.
+`native=None` tries the C codec and falls back to Python where the library
+cannot be built or loaded, True raises then, False takes Python. Format:
 
   header (32 B LE): magic 'CGAS' | version u8 | n_buttons u8 | pad u16 |
     batch u32 | n_ticks u32 | raw_size u64 | comp_size u64
@@ -36,10 +38,20 @@ def _to_numpy(actions: Actions):
     return move, look, buttons
 
 
-def save_actions(path: str | Path, actions: Actions) -> None:
-    """Write a [T, B] action stream (tensors on any device)."""
+def save_actions(path: str | Path, actions: Actions, native: bool | None = None) -> None:
+    """Write a [T, B] action stream (tensors on any device). native=None
+    tries the C codec first."""
     move, look, buttons = _to_numpy(actions)
     t, b = move.shape[:2]
+    if native is not False:
+        try:
+            from c_game_engine_tpu_torch.native import actions_write_native
+
+            actions_write_native(str(path), move, look, buttons)
+            return
+        except (OSError, RuntimeError):
+            if native:
+                raise
     mask = np.zeros((t * b,), np.uint16)
     flat_b = buttons.reshape(t * b, NUM_BUTTONS)
     for i in range(NUM_BUTTONS):
@@ -50,10 +62,19 @@ def save_actions(path: str | Path, actions: Actions) -> None:
     Path(path).write_bytes(header + comp)
 
 
-def load_actions(path: str | Path, device="cuda") -> Actions:
+def load_actions(path: str | Path, native: bool | None = None, device="cuda") -> Actions:
     """Read a CGAS stream back as [T, B] Actions on `device`. A stream
     written with another button count keeps the buttons both sets share
-    and leaves the rest unpressed."""
+    and leaves the rest unpressed. native=None tries the C codec first."""
+    if native is not False:
+        try:
+            from c_game_engine_tpu_torch.native import actions_read_native
+
+            move, look, buttons = actions_read_native(str(path))
+            return _actions(move, look, buttons > 0, buttons.shape[-1], device)
+        except (OSError, RuntimeError):
+            if native:
+                raise
     data = Path(path).read_bytes()
     if len(data) < _HEADER.size:
         raise ValueError(f"{path}: truncated stream")
@@ -70,8 +91,14 @@ def load_actions(path: str | Path, device="cuda") -> Actions:
     look = np.frombuffer(raw, np.float32, tb * 2, tb * 8).reshape(t, b, 2)
     mask = np.frombuffer(raw, np.uint16, tb, tb * 16)
     buttons = ((mask[:, None] >> np.arange(nb)[None, :]) & 1).astype(bool)
-    buttons = buttons.reshape(t, b, nb)
+    return _actions(move, look, buttons.reshape(t, b, nb), nb, device)
+
+
+def _actions(move, look, buttons, nb, device) -> Actions:
+    """[T, B] Actions on `device` from the decoded arrays; a stream of
+    another button count keeps the buttons both sets share."""
     if nb != NUM_BUTTONS:  # forward/backward compatible button sets
+        t, b = move.shape[:2]
         out = np.zeros((t, b, NUM_BUTTONS), bool)
         out[..., : min(nb, NUM_BUTTONS)] = buttons[..., : min(nb, NUM_BUTTONS)]
         buttons = out
@@ -96,5 +123,5 @@ class ActionRecorder:
             raise ValueError("nothing recorded")
         return Actions(*(torch.stack([getattr(a, f) for a in self._ticks]) for f in ("move", "look", "buttons")))
 
-    def save(self, path: str | Path):
-        save_actions(path, self.stream())
+    def save(self, path: str | Path, native: bool | None = None):
+        save_actions(path, self.stream(), native=native)

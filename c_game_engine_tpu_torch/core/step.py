@@ -32,6 +32,7 @@ from c_game_engine_tpu_torch.physics import geometry_soa as gsoa
 from c_game_engine_tpu_torch.physics.character import CAPSULE_HALF_HEIGHT, CAPSULE_RADIUS
 from c_game_engine_tpu_torch.utils.mathx import (
     const,
+    norm,
     quat_from_axis_angle,
     quat_lerp,
     quat_normalize,
@@ -100,7 +101,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
 
     # ------------------------------------------------- MovePlayer velocity
     move = actions.move * torch.where(allow, 1.0, 0.0)[:, None]
-    mlen = batched._norm(move)
+    mlen = norm(move)
     mdir = torch.where((mlen > 1e-6)[:, None], move / torch.clamp_min(mlen, 1e-6)[:, None], 0.0)
     speed = torch.where(
         btn[:, Button.SLOW] & allow,
@@ -153,7 +154,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
         stat = by_kind(const((False,), dev, torch.bool), trip)
         mhit, mfrac, mact = batched.cast_rays_batched(
             cmap, state.actors, origins, dirs, maxd, exclude=excl, require_flags=rfl,
-            B_env=B, static_only=stat,
+            B_env=B, static_only=stat, layout="kind_major",
         )
         mhit, mfrac, mact = (x.reshape(L + 1, B).T for x in (mhit, mfrac, mact))
         hit, frac, hit_actor = mhit[:, 0], mfrac[:, 0], mact[:, 0]
@@ -323,7 +324,7 @@ def step_batch(cmap, state: EnvState, actions: Actions) -> EnvState:
     can_drop_next = allow & ~touching
 
     # -------------------------------------------- view bob (MapPhysics.c:76-84)
-    dist = batched._norm(new_pos[:, 0::2] - old_xz)
+    dist = norm(new_pos[:, 0::2] - old_xz)
     bob_h = remap(dist, 0.0, MOVE_SPEED / TPS, 0.0, 0.1)
     view_bob = 0.1 + torch.sin(torch.remainder(state.frame.float() / 7.0, 2.0 * math.pi)) * bob_h
 

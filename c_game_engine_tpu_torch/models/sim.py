@@ -134,12 +134,12 @@ def load_named_map(map_name: str, device="cuda", search_paths=None):
     return load_map(path, path.with_suffix(".json"), device)
 
 
-def make_sim(map_name: str, batch: int = 4096, jit: bool = True, device="cuda", search_paths=None) -> BatchedSim:
+def make_sim(map_source: str, batch: int = 4096, jit: bool = True, device="cuda", search_paths=None) -> BatchedSim:
     """BatchedSim on a map of `load_named_map` (a `.gmap` or `.json` source
     path is compiled, a name loads its committed files). jit=True steps and
     rolls out through the CUDA tick graph and raises on a CPU device;
     jit=False runs the eager tick."""
-    cmap = load_named_map(map_name, device, search_paths)
+    cmap = load_named_map(map_source, device, search_paths)
     if jit and cmap.device.type != "cuda":
         raise ValueError(f"make_sim(jit=True) captures a CUDA graph; device {cmap.device} has none "
                          "(pass jit=False for the eager tick)")

@@ -3,13 +3,19 @@ parts of c_game_engine_tpu/physics/batched.py on the ported path).
 
 Shapes: B = env batch, N = actor slots, R = flattened ray count.
 
-The port always runs the kernel formulation the JAX package takes on the
+The tick always runs the kernel formulation the JAX package takes on the
 TPU (`_use_pallas()` true): the character controller resolves through
 kernel K1 (ops/capsule_resolve.py) with one doubled [2B] launch for the
 main and step-up poses, and the static part of every ray goes through
 kernel K2 (ops/ray_tris.py). The rigid-body step, with kernel K3
 (ops/body_contacts.py), is physics/bodies.py::step_bodies_batched. On a CPU
 tensor the kernels run as their plain PyTorch versions.
+
+`resolve_capsule_batched` is the JAX package's other formulation (its XLA
+path, `_use_pallas()` false): triangle candidates per lane from the
+uniform grid (`_grid_cells_at`) instead of K1's per-128-lane-block chunk
+lists. It is plain PyTorch and not on the tick; it measures how far K1's
+block-wide candidate set moves a lane (ROADMAP fault f).
 """
 
 from __future__ import annotations
@@ -21,14 +27,16 @@ from c_game_engine_tpu_torch.core import gates
 from c_game_engine_tpu_torch.ops.capsule_resolve import BLK, resolve_capsule
 from c_game_engine_tpu_torch.ops.ray_tris import ray_tris
 from c_game_engine_tpu_torch.physics import geometry_soa as g
-from c_game_engine_tpu_torch.physics.character import STEP_UP, STICK_DOWN
+from c_game_engine_tpu_torch.physics.character import (
+    CAPSULE_HALF_HEIGHT,
+    CAPSULE_RADIUS,
+    MAX_SLOPE_COS,
+    STEP_UP,
+    STICK_DOWN,
+)
+from c_game_engine_tpu_torch.physics.grid import cell_of
 from c_game_engine_tpu_torch.utils import counters
-from c_game_engine_tpu_torch.utils.mathx import const
-
-
-def _norm(v):
-    """Euclidean norm over the last axis, summed like jnp.linalg.norm."""
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+from c_game_engine_tpu_torch.utils.mathx import const, norm
 
 
 def solid_mask(cmap, active):
@@ -53,6 +61,71 @@ def _solid_actor_soa(cmap, actors):
     oz = oz + actors.pos[..., 2].T
     hx, hy, hz = (cmap.halfext[:, k][:, None] for k in range(3))
     return solid.T, (ox, oy, oz), (qx, qy, qz, qw), (hx, hy, hz)
+
+
+def _grid_cells_at(cmap, px, pz):
+    """[B] positions -> candidate triangle lists [L, B] (-1 padded)."""
+    return cmap.grid_cells[cell_of(cmap, px, pz)].T
+
+
+def _tri_comps(cmap, cand):
+    """The 12 per-triangle components (tri_soa rows) for the candidate
+    index tensor `cand` (any shape, -1 for none): 12 tensors shaped like
+    cand."""
+    candc = torch.clamp_min(cand, 0).long()
+    return [cmap.tri_soa[k][candc] for k in range(12)]
+
+
+def _capsule_contacts(cmap, pos, solid_t, box_o, box_q, box_h):
+    """Every capsule contact at positions pos [B, 3]: triangles from the
+    grid cell of each lane, then the actor boxes.
+    Returns (depth [L+N, B], normal components [L+N, B] x 3)."""
+    px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
+    sy0, sy1 = py - CAPSULE_HALF_HEIGHT, py + CAPSULE_HALF_HEIGHT
+
+    # ---- static triangles
+    cand = _grid_cells_at(cmap, px, pz)  # [L, B]
+    c = _tri_comps(cmap, cand)
+    cand_ok = (cand >= 0) & cmap.tri_valid[torch.clamp_min(cand, 0).long()]
+    signed, nx, ny, nz = g.capsule_tri_contact_soa(
+        px[None], sy0[None], sy1[None], pz[None], *c, CAPSULE_RADIUS,
+    )
+    tri_depth = torch.where(cand_ok, CAPSULE_RADIUS - signed, -torch.inf)
+
+    # ---- solid actor boxes
+    ox, oy, oz = box_o
+    qx, qy, qz, qw = box_q
+    hx, hy, hz = box_h
+    wx, wy, wz = g.closest_point_on_obb_soa(px[None], py[None], pz[None], ox, oy, oz, qx, qy, qz, qw, hx, hy, hz)
+    for _ in range(2):
+        spx, spy, spz = g.closest_point_on_vseg_soa(wx, wy, wz, px[None], sy0[None], sy1[None], pz[None])
+        wx, wy, wz = g.closest_point_on_obb_soa(spx, spy, spz, ox, oy, oz, qx, qy, qz, qw, hx, hy, hz)
+    bnx, bny, bnz, bdist = g.normalize3(spx - wx, spy - wy, spz - wz)
+    box_depth = torch.where(solid_t, CAPSULE_RADIUS - bdist, -torch.inf)
+
+    depth = torch.cat([tri_depth, box_depth], 0)
+    return depth, torch.cat([nx, bnx], 0), torch.cat([ny, bny], 0), torch.cat([nz, bnz], 0)
+
+
+def resolve_capsule_batched(cmap, pos, vel, solid_ctx, iters=4):
+    """Penetration resolution with per-lane grid candidates (the JAX
+    package's XLA path, not K1). pos/vel [B, 3]; solid_ctx from
+    `_solid_actor_soa`. Returns (pos, vel, grounded [B])."""
+    solid_t, box_o, box_q, box_h = solid_ctx
+    grounded = torch.zeros(pos.shape[0], dtype=torch.bool, device=pos.device)
+    for _ in range(iters):
+        depth, nx, ny, nz = _capsule_contacts(cmap, pos, solid_t, box_o, box_q, box_h)
+        worst = torch.argmax(depth, dim=0)[None]  # [1, B]: the first deepest contact
+        d = depth.gather(0, worst)[0]
+        n = torch.stack([nx.gather(0, worst)[0], ny.gather(0, worst)[0], nz.gather(0, worst)[0]], -1)
+        hit = d > -0.01
+        push = torch.clamp_min(d, 0.0) * hit
+        pos = pos + n * push[:, None]
+        vn = vel[:, 0] * n[:, 0] + vel[:, 1] * n[:, 1] + vel[:, 2] * n[:, 2]
+        clip = hit & (vn < 0)
+        vel = vel - n * torch.where(clip, vn, 0.0)[:, None]
+        grounded = grounded | (hit & (n[:, 1] >= MAX_SLOPE_COS))
+    return pos, vel, grounded
 
 
 def _make_kernel_ctx(solid_ctx):
@@ -113,10 +186,10 @@ def update_character_batched(cmap, actors, pos, vel, dt, was_on_ground, jumping,
 
     # stair step-up
     horiz = const((1.0, 0.0, 1.0), dev)
-    h_in = _norm(vel * horiz)
-    h_out = _norm(v * horiz)
+    h_in = norm(vel * horiz)
+    h_out = norm(v * horiz)
     blocked = (h_in > 1e-4) & (h_out < 0.9 * h_in)
-    h2 = _norm(v2 * horiz)
+    h2 = norm(v2 * horiz)
     use_step = blocked & (h2 > h_out + 1e-4)
     p = torch.where(use_step[:, None], p2, p)
     v = torch.where(use_step[:, None], v2, v)
@@ -152,12 +225,16 @@ def cast_rays_batched(
     require_flags=0,
     B_env=None,
     static_only=None,
+    layout="interleaved",
 ):
-    """Batched hitscan. origin/direction [R, 3] (R = B * K rays, kind-major:
-    every env's ray 0, then every env's ray 1, ...; the JAX function's
-    layout="kind_major"); `actors` leaves are [B, N, ...]. max_dist and
-    require_flags are scalars or [R] tensors; exclude [R] actor ids;
+    """Batched hitscan. origin/direction [R, 3] (R = B * K rays, flattened
+    over the batch); `actors` leaves are [B, N, ...] (pass B_env=B). max_dist
+    and require_flags are scalars or [R] tensors; exclude [R] actor ids;
     static_only [R] bool restricts a ray to the static world.
+    layout: how the K rays of each env are flattened, "interleaved" =
+    env-major [e0k0, e0k1, ..., e1k0, ...], "kind_major" = every env's ray
+    0, then every env's ray 1, ... (the tick's merged launch, which keeps
+    K2's 128-ray blocks spatially tight).
 
     Returns (hit [R], fraction [R], actor_idx [R] with -1 = static world)."""
     r = origin.shape[0]
@@ -175,7 +252,11 @@ def cast_rays_batched(
     n = cmap.num_actors
 
     def actor_comp(a):  # [B, N] -> [N, R]
-        return a.T.repeat(1, k)
+        if k == 1:
+            return a.T
+        if layout == "kind_major":
+            return a.T.repeat(1, k)
+        return a.T[:, :, None].expand(n, b, k).reshape(n, r)
 
     qx, qy, qz, qw = (actor_comp(actors.quat[..., j]) for j in range(4))
     scx, scy, scz = (cmap.shape_center[:, j][:, None] for j in range(3))

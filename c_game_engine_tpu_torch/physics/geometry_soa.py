@@ -96,6 +96,38 @@ def closest_point_on_vseg_soa(px, py, pz, sx, sy0, sy1, sz):
     return sx.expand(qy.shape), qy, sz.expand(qy.shape)
 
 
+def capsule_tri_contact_soa(
+    s_x, s_y0, s_y1, s_z, ax, ay, az, bx, by, bz, cx, cy, cz, nx, ny, nz, radius, iters=2
+):
+    """Deepest-point contact between a vertical capsule axis segment
+    (x = s_x, z = s_z, y in [s_y0, s_y1]) and a triangle with face normal
+    (nx, ny, nz). Returns (signed, onx, ony, onz): the contact normal
+    oriented toward the capsule centre's side of the face and the
+    separation along it, so depth = radius - signed (the convention of
+    physics/character.py::_collect_contacts)."""
+    mx = s_x
+    my = (s_y0 + s_y1) * 0.5
+    mz = s_z
+    qx, qy, qz = closest_point_on_triangle_soa(mx, my, mz, ax, ay, az, bx, by, bz, cx, cy, cz)
+    for _ in range(iters):
+        px_, py_, pz_ = closest_point_on_vseg_soa(qx, qy, qz, s_x, s_y0, s_y1, s_z)
+        qx, qy, qz = closest_point_on_triangle_soa(px_, py_, pz_, ax, ay, az, bx, by, bz, cx, cy, cz)
+    dx, dy, dz = px_ - qx, py_ - qy, pz_ - qz
+    rx, ry, rz, dist = normalize3(dx, dy, dz)
+
+    side = torch.sign(dot3(mx - ax, my - ay, mz - az, nx, ny, nz))
+    side = torch.where(side == 0, 1.0, side)
+    flip = torch.sign(dot3(rx, ry, rz, nx, ny, nz)) * side
+    flip = torch.where(flip == 0, 1.0, flip)
+    onx, ony, onz = rx * flip, ry * flip, rz * flip
+    deg = dist <= 1e-6
+    onx = torch.where(deg, nx * side, onx)
+    ony = torch.where(deg, ny * side, ony)
+    onz = torch.where(deg, nz * side, onz)
+    signed = dot3(dx, dy, dz, onx, ony, onz)
+    return signed, onx, ony, onz
+
+
 def ray_tri_soa(ox, oy, oz, dx, dy, dz, ax, ay, az, bx, by, bz, cx, cy, cz, max_t):
     """Moller-Trumbore, two-sided. Returns (hit, t)."""
     e1x, e1y, e1z = bx - ax, by - ay, bz - az

@@ -18,7 +18,7 @@ import math
 import torch
 
 from c_game_engine_tpu_torch.actors.defs import Motion, Shape
-from c_game_engine_tpu_torch.utils.mathx import const, cross, quat_rotate
+from c_game_engine_tpu_torch.utils.mathx import const, cross, quat_rotate, safe_normalize
 
 # copied from c_game_engine_tpu/render/debug_draw.py
 COLOR_BODY = (1.0, 1.0, 1.0, 1.0)
@@ -86,12 +86,6 @@ def collect_segments(cmap, state):
     valid = torch.cat([body_valid.reshape(b, -1), s_valid.reshape(b, -1),
                        torch.ones((b, 18), dtype=torch.bool, device=dev)], 1)
     return segments, colors, valid
-
-
-def safe_normalize(v, eps=1e-12):
-    """v / |v| along the last axis, and zero where |v| <= eps."""
-    n = torch.sqrt((v * v).sum(-1, keepdim=True))
-    return torch.where(n > eps, v / n.clamp_min(eps), 0.0)
 
 
 def segments_to_part(segments, colors, valid, cam_pos):

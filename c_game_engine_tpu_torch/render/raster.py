@@ -38,7 +38,8 @@ captured CUDA graph per option set (render/graph.py); the `_eager`
 functions are the plain calls, which the CPU takes. Every function that
 the JAX package vmaps over envs takes a leading batch axis here; `render`,
 `render_viewmodel` and `render_with_hud` keep the JAX one-env signatures.
-The dual atlas (`textures.py::_sample_dual`) is not ported.
+The shade samples the bundle's atlas, which has no dual rows, as in the JAX
+package (`textures.py::build_atlas(dual=True)` builds them on request).
 """
 
 from __future__ import annotations

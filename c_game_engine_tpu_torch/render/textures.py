@@ -10,8 +10,11 @@ are built in float32 and rounded to bfloat16 once, to nearest even, as
 wraps the uv, else clamps; filter is bilinear (trilinear across mip
 levels), else nearest.
 
-The JAX dual-level atlas (`build_atlas(dual=True)`, `_sample_dual`) is
-not ported: nothing in either package builds one.
+`build_atlas(dual=True)` also packs the dual-level rows (`TextureAtlas.dual`):
+each texel's 2x2 block beside the next mip level's 3x3 neighbourhood, so a
+trilinear tap is one 52-channel gather (`_sample_dual`) instead of two
+16-channel ones, with the same result bit for bit. The bundle builder
+(render/bundle.py) builds no dual atlas, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ class TextureAtlas:
     n_mips: torch.Tensor  # [T] f32 (1 = no chain)
     mip_pairs: torch.Tensor  # [T, MAX_MIPS, 8] f32: level L rect | level min(L+1, last) rect
     flag_words: torch.Tensor  # [T] i32: repeat << 21 | filter << 22
+    # dual-level rows: dual[y, x, 0:16] = blocked[y, x]; dual[y, x, 16:52] =
+    # the next mip level's 3x3 texel neighbourhood (row-major (dy, dx), 4
+    # channels each) anchored at (x // 2 - 1, y // 2 - 1) in that level,
+    # wrapped or clamped per the texture's repeat mode. A level L+1
+    # bilinear footprint from the same uv lands within that 3x3, so a
+    # trilinear tap is one gather. A chain's last level embeds itself (its
+    # blend fraction is 0). None unless build_atlas(dual=True).
+    dual: torch.Tensor | None = None  # [AH, AW, 52]
 
 
 def _downsample(px: np.ndarray) -> np.ndarray:
@@ -48,11 +59,16 @@ def _downsample(px: np.ndarray) -> np.ndarray:
     return px
 
 
-def build_atlas(textures: list, device="cuda") -> TextureAtlas:
+def build_atlas(textures: list, dual: bool = False, dual_dtype=None, blocked_dtype=torch.bfloat16,
+                device="cuda") -> TextureAtlas:
     """Shelf-pack decoded Texture objects (assets/codecs.py::Texture) and the
     mip chains of those with the mipmaps flag, on `device`. The rows are
-    stored in bfloat16, the JAX default (8-bit sources lose at most 0.2% a
-    channel)."""
+    stored in `blocked_dtype`, bfloat16 by default as in the JAX package
+    (8-bit sources lose at most 0.2% a channel). dual=True also packs the
+    dual-level rows (TextureAtlas.dual) in `dual_dtype`, which defaults to
+    blocked_dtype so the two sampling paths stay bit-identical."""
+    if dual_dtype is None:
+        dual_dtype = blocked_dtype
     textures = list(textures or [])
     # per-texture mip pyramids (level 0 = the texture itself)
     chains = []
@@ -83,6 +99,7 @@ def build_atlas(textures: list, device="cuda") -> TextureAtlas:
         height *= 2
 
     blocked = np.zeros((height, width, 16), np.float32)
+    dual_arr = np.zeros((height, width, 52), np.float32) if dual else None
     nt = max(len(textures), 1)
     table = np.zeros((nt, 6), np.float32)
     mips = np.zeros((nt, MAX_MIPS, 4), np.float32)
@@ -103,6 +120,22 @@ def build_atlas(textures: list, device="cuda") -> TextureAtlas:
             blocked[py : py + lh, px : px + lw, 4:8] = lv[:, xn]
             blocked[py : py + lh, px : px + lw, 8:12] = lv[yn]
             blocked[py : py + lh, px : px + lw, 12:16] = lv[yn][:, xn]
+            if dual:
+                dual_arr[py : py + lh, px : px + lw, 0:16] = blocked[py : py + lh, px : px + lw]
+                # next level's 3x3 anchored at (x//2 - 1, y//2 - 1); the
+                # last level embeds itself (its blend fraction is 0)
+                lv1 = ch[min(li + 1, len(ch) - 1)]
+                h1, w1 = lv1.shape[:2]
+                kx = np.arange(lw) // 2
+                ky = np.arange(lh) // 2
+                for j in range(3):
+                    sy = ky - 1 + j
+                    sy = sy % h1 if t.repeat else np.clip(sy, 0, h1 - 1)
+                    for ii in range(3):
+                        sx = kx - 1 + ii
+                        sx = sx % w1 if t.repeat else np.clip(sx, 0, w1 - 1)
+                        c0 = 16 + (j * 3 + ii) * 4
+                        dual_arr[py : py + lh, px : px + lw, c0 : c0 + 4] = lv1[sy][:, sx]
             mips[i, li] = [px, py, lw, lh]
             if li == 0:
                 table[i] = [px, py, lw, lh, float(t.repeat), float(t.filter)]
@@ -118,24 +151,21 @@ def build_atlas(textures: list, device="cuda") -> TextureAtlas:
                   + (table[:, 5] > 0.5).astype(np.int32) * (1 << 22))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return TextureAtlas(
-        blocked=t(blocked).to(torch.bfloat16),
+        blocked=t(blocked).to(blocked_dtype),
         table=t(table),
         mips=t(mips),
         n_mips=t(n_mips),
         mip_pairs=t(pairs),
         flag_words=t(flag_words),
+        dual=t(dual_arr).to(dual_dtype) if dual else None,
     )
 
-def _sample_level(atlas, rect, repeat, bilinear, uv):
-    """Bilinear or nearest fetch within one mip rect: one blocked gather.
+def _block_coords(rect, repeat, u, v):
+    """The texel block (xi, yi) of the atlas a tap at (u, v) in `rect`
+    reads, its fractions (tx, ty), and its block within the level (bx, by).
     Clamp mode pins fx into [0, w-1] before the floor; repeat mode floors
     first and wraps the block index."""
     x0, y0, w, h = rect[..., 0], rect[..., 1], rect[..., 2], rect[..., 3]
-    u = uv[..., 0]
-    v = uv[..., 1]
-    u = torch.where(repeat, u - torch.floor(u), u.clamp(0.0, 1.0))
-    v = torch.where(repeat, v - torch.floor(v), v.clamp(0.0, 1.0))
-
     fx = u * w - 0.5
     fy = v * h - 0.5
     fx = torch.where(repeat, fx, torch.minimum(fx.clamp_min(0.0), (w - 1.0).clamp_min(0.0)))
@@ -144,15 +174,30 @@ def _sample_level(atlas, rect, repeat, bilinear, uv):
     iy0 = torch.floor(fy)
     tx = fx - ix0
     ty = fy - iy0
-
     bx = torch.where(repeat, torch.remainder(ix0, w.clamp_min(1.0)), ix0)
     by = torch.where(repeat, torch.remainder(iy0, h.clamp_min(1.0)), iy0)
-    ah, aw = atlas.blocked.shape[:2]
-    # an index the JAX gather would clamp is clamped here too
-    xi = (x0 + bx).to(torch.int32).clamp(0, aw - 1)
-    yi = (y0 + by).to(torch.int32).clamp(0, ah - 1)
-    flat = atlas.blocked.reshape(ah * aw, 16)
-    blk = flat[(yi * aw + xi).long()].float()  # [..., 16]
+    return x0 + bx, y0 + by, tx, ty, bx, by
+
+
+def _wrap_uv(repeat, uv):
+    u = uv[..., 0]
+    v = uv[..., 1]
+    u = torch.where(repeat, u - torch.floor(u), u.clamp(0.0, 1.0))
+    v = torch.where(repeat, v - torch.floor(v), v.clamp(0.0, 1.0))
+    return u, v
+
+
+def _fetch(rows, xf, yf):
+    """rows[yi, xi] as float32 for float atlas coordinates; an index the JAX
+    gather would clamp is clamped here too."""
+    ah, aw, ch = rows.shape
+    xi = xf.to(torch.int32).clamp(0, aw - 1)
+    yi = yf.to(torch.int32).clamp(0, ah - 1)
+    return rows.reshape(ah * aw, ch)[(yi * aw + xi).long()].float()
+
+
+def _filter_block(blk, tx, ty, bilinear):
+    """Bilinear or nearest value of a 2x2 block [..., 16] (c00, c10, c01, c11)."""
     c00, c10, c01, c11 = blk[..., 0:4], blk[..., 4:8], blk[..., 8:12], blk[..., 12:16]
     lin = (
         c00 * ((1 - tx) * (1 - ty))[..., None]
@@ -165,6 +210,64 @@ def _sample_level(atlas, rect, repeat, bilinear, uv):
     nearest = torch.where(near_y, torch.where(near_x, c11, c01), torch.where(near_x, c10, c00))
     return torch.where(bilinear[..., None], lin, nearest)
 
+
+def _sample_dual(atlas, rect, rect1, repeat, bilinear, uv, frac):
+    """Trilinear tap from one dual-row gather: the level-L 2x2 block and the
+    embedded level-L+1 3x3 neighbourhood (TextureAtlas.dual). The level-L
+    math is _sample_level's; the L+1 bilinear footprint is found in the
+    stored 3x3 by its offset from the anchor (x // 2 - 1, y // 2 - 1),
+    exact for even level widths (every power-of-two chain); odd deep levels
+    clip to the nearest stored texel."""
+    u, v = _wrap_uv(repeat, uv)
+    xf, yf, tx, ty, bx, by = _block_coords(rect, repeat, u, v)
+    blk = _fetch(atlas.dual, xf, yf)  # [..., 52]
+    c0 = _filter_block(blk, tx, ty, bilinear)
+
+    # ---- the L+1 tap out of the embedded 3x3
+    w1, h1 = rect1[..., 2], rect1[..., 3]
+    fx1 = u * w1 - 0.5
+    fy1 = v * h1 - 0.5
+    fx1 = torch.where(repeat, fx1, torch.minimum(fx1.clamp_min(0.0), (w1 - 1.0).clamp_min(0.0)))
+    fy1 = torch.where(repeat, fy1, torch.minimum(fy1.clamp_min(0.0), (h1 - 1.0).clamp_min(0.0)))
+    ix1 = torch.floor(fx1)
+    iy1 = torch.floor(fy1)
+    tx1 = fx1 - ix1
+    ty1 = fy1 - iy1
+    bx1 = torch.where(repeat, torch.remainder(ix1, w1.clamp_min(1.0)), ix1)
+    by1 = torch.where(repeat, torch.remainder(iy1, h1.clamp_min(1.0)), iy1)
+    offx = bx1 - torch.floor(bx * 0.5) + 1.0
+    offy = by1 - torch.floor(by * 0.5) + 1.0
+    offx = torch.where(repeat, torch.remainder(offx, w1.clamp_min(1.0)), offx).clamp(0.0, 1.0)
+    offy = torch.where(repeat, torch.remainder(offy, h1.clamp_min(1.0)), offy).clamp(0.0, 1.0)
+
+    cidx = torch.arange(3, dtype=torch.float32, device=uv.device)
+    nx = offx + (tx1 > 0.5)
+    ny = offy + (ty1 > 0.5)
+    wx3 = torch.where(
+        bilinear[..., None],
+        (cidx == offx[..., None]) * (1.0 - tx1)[..., None] + (cidx == offx[..., None] + 1.0) * tx1[..., None],
+        (cidx == nx[..., None]).float(),
+    )  # [..., 3]
+    wy3 = torch.where(
+        bilinear[..., None],
+        (cidx == offy[..., None]) * (1.0 - ty1)[..., None] + (cidx == offy[..., None] + 1.0) * ty1[..., None],
+        (cidx == ny[..., None]).float(),
+    )
+    # the 9 terms added in the JAX order (row-major), each weight one
+    # product: the two-tap path's four nonzero terms in its own order
+    c1 = torch.zeros_like(c0)
+    for j in range(3):
+        for i in range(3):
+            ch = 16 + (j * 3 + i) * 4
+            c1 = c1 + (wy3[..., j] * wx3[..., i])[..., None] * blk[..., ch : ch + 4]
+    return c0 + (c1 - c0) * frac[..., None]
+
+
+def _sample_level(atlas, rect, repeat, bilinear, uv):
+    """Bilinear or nearest fetch within one mip rect: one blocked gather."""
+    u, v = _wrap_uv(repeat, uv)
+    xf, yf, tx, ty, _, _ = _block_coords(rect, repeat, u, v)
+    return _filter_block(_fetch(atlas.blocked, xf, yf), tx, ty, bilinear)
 
 
 def sample(atlas: TextureAtlas, tex_id, uv, lod=None, flags=None):
@@ -205,6 +308,8 @@ def sample(atlas: TextureAtlas, tex_id, uv, lod=None, flags=None):
     mips_flat = atlas.mips.reshape(-1, 4)
     r0 = mips_flat[tid * MAX_MIPS + l0.long()]
     r1 = mips_flat[tid * MAX_MIPS + l1.long()]
+    if atlas.dual is not None:
+        return _sample_dual(atlas, r0, r1, repeat, bilinear, uv, frac)
     c0 = _sample_level(atlas, r0, repeat, bilinear, uv)
     c1 = _sample_level(atlas, r1, repeat, bilinear, uv)
     return c0 + (c1 - c0) * frac[..., None]

@@ -1,6 +1,5 @@
 """Scalar, vector, quaternion and camera-matrix helpers used by the tick
-and the renderer (counterpart of c_game_engine_tpu/utils/mathx.py, the
-functions on the ported paths only).
+and the renderer (counterpart of c_game_engine_tpu/utils/mathx.py).
 
 Quaternions are (x, y, z, w) like Jolt's JPH_Quat.
 """
@@ -20,6 +19,11 @@ def const(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def clamp(x, lo, hi):
+    return torch.minimum(torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device)),
+                         torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+
+
 def lerp(a, b, t):
     return a + (b - a) * t
 
@@ -28,10 +32,30 @@ def remap(x, in_lo, in_hi, out_lo, out_hi):
     return out_lo + (x - in_lo) * (out_hi - out_lo) / (in_hi - in_lo)
 
 
+def norm(v, axis=-1, keepdim=False):
+    """Euclidean norm over `axis`: the square root of the sum of squares,
+    as jnp.linalg.norm computes it."""
+    return torch.sqrt(torch.sum(v * v, dim=axis, keepdim=keepdim))
+
+
+def normalize(v, axis=-1, eps=1e-12):
+    return v / torch.clamp_min(norm(v, axis, keepdim=True), eps)
+
+
+def safe_normalize(v, axis=-1, eps=1e-12):
+    """v / |v| along `axis`, and the zero vector where |v| <= eps (no NaN)."""
+    n = norm(v, axis, keepdim=True)
+    return torch.where(n > eps, v / torch.clamp_min(n, eps), torch.zeros_like(v))
+
+
 def cross(a, b):
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def dot(a, b, axis=-1):
+    return torch.sum(a * b, dim=axis)
 
 
 def quat_from_axis_angle(axis, angle):
@@ -58,6 +82,31 @@ def quat_rotate(q, v):
     qw = q[..., 3:4]
     t = 2.0 * cross(qv, v)
     return v + qw * t + cross(qv, t)
+
+
+def quat_from_euler(euler):
+    """ZYX-composed euler (x = pitch, y = yaw, z = roll) to quaternion,
+    q = qz * qy * qx, as Jolt's Quat::sEulerAngles."""
+    ex, ey, ez = euler[..., 0] * 0.5, euler[..., 1] * 0.5, euler[..., 2] * 0.5
+    cx, sx = torch.cos(ex), torch.sin(ex)
+    cy, sy = torch.cos(ey), torch.sin(ey)
+    cz, sz = torch.cos(ez), torch.sin(ez)
+    return torch.stack(
+        [
+            sx * cy * cz - cx * sy * sz,
+            cx * sy * cz + sx * cy * sz,
+            cx * cy * sz - sx * sy * cz,
+            cx * cy * cz + sx * sy * sz,
+        ],
+        dim=-1,
+    )
+
+
+def quat_twist_angle(q, axis):
+    """Signed rotation angle of q about unit `axis` (the twist of a
+    swing-twist decomposition, JPH_Quat's GetRotationAngle(axis))."""
+    axis = torch.as_tensor(axis, dtype=q.dtype, device=q.device)
+    return 2.0 * torch.atan2(dot(q[..., :3], axis), q[..., 3])
 
 
 def quat_lerp(a, b, t):

@@ -113,6 +113,28 @@ Phases (any failure exits non-zero and prints no result line):
      of at least 0.03, every control of the widget screens drawn over its
      background; 0 host syncs over in-game tick + render_frame pairs and
      their rate; play.py --script --seconds 5 headless and its frames/s.
+  10. the closing slice (`closing_phase`), on the card against the CPU:
+     actors/behaviors.py::compute_laser_rays over 4096 envs of arena after
+     60 ticks of the bench stream, exactly one K2 launch (the launch count
+     reset just before and read just after), the first 256 envs' hits and
+     actor ids equal to the CPU's and fractions within 1e-5, ms a call;
+     single-env physics/character.py::update_character for 60 ticks of the
+     bench stream (positions within 2e-3, on_ground equal; ms a tick, one
+     env: launch-bound); physics/raycast.py::cast_ray for the interact ray
+     and a laser; physics/batched.py::resolve_capsule_batched (per-lane
+     grid candidates) against the K1 path on 4096 lanes of long_run's
+     per-env stream after 480 ticks (ROADMAP fault f: the lanes whose
+     position differs by more than 1e-3 and by how much, ms a call of each;
+     a measurement, not a gate); the dual atlas of arena_lit's textures
+     (build_atlas(dual=True)) sampled through its dual rows against the
+     two-tap path on 4.2 M taps, bit for bit, ms a call of each;
+     bake_lightmap(bounces=1) of rooms.json on the card and the CPU (99% of
+     luxels within 1e-4, every one within 0.02; seconds) and of one in every
+     101 of halls.json's surfaces on the card (seconds); where this machine
+     has g++ and zlib's header (native.py::have_toolchain), the native host
+     library: its double-precision oracle within 0.06 of update_character
+     on the card over 90 ticks, and a 240 x 4096 CGAS stream written by
+     both codecs byte for byte the same.
 The render path runs through its CUDA graphs (render/graph.py): on the
 card render_batch and render_with_hud_batch replay one captured graph per
 option set, the reveal overflow a conditional node in it. So phase 3 also
@@ -133,7 +155,7 @@ The last three lines are the card's name and power limit, a JSON object
 with each kernel's launches, error, times and bound (and steps/s of the
 graph and of the eager loop, the graphs, the per-replay figures, frames/s
 of the render graphs and of the eager render, the long run and the
-bench, the audio, mesh, action stream, demo and app figures), and
+bench, the audio, mesh, action stream, demo, app and closing figures), and
 {"ok": true, "device": {...}}.
 """
 
@@ -173,6 +195,17 @@ FRAME_BAR = 0.002  # share of pixels that may differ by more than 1/255
 # the app phase: in-game ticks each way of the session; tick + render_frame
 # pairs counted for host syncs and timed
 APP_TICKS, APP_SYNC_TICKS, APP_RATE_TICKS = 60, 5, 60
+# the closing phase: ticks of the bench stream before the laser rays and
+# of the single-env walk; ticks of long_run's per-env stream before the
+# fault-f resolve; the bench stream's walk (core/step.py); the arena spawn
+# (tests/torch_export_map.py::SPAWN) and the native oracle's start (2 m
+# from two perimeter walls, which the walk slides along)
+CLOSING_TICKS, FAULT_F_TICKS = 60, 480
+WALK_SPEED, WALK_GRAVITY = 6.0, -9.81
+SPAWN_ARENA, NATIVE_START = (9.0, 0.45, -2.0), (-20.0, 0.6, -20.0)
+# envs of the laser rays also cast on the CPU (each env's rays see only its
+# own actors)
+LASER_CPU_ENVS = 256
 
 # H100 SXM published peaks (float32 outside the tensor cores; HBM3)
 PEAK_FLOPS = 67e12
@@ -1119,11 +1152,11 @@ def action_stream_phase(arena):
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "walk_and_turn.cgas"
         t0 = time.perf_counter()
-        save_actions(path, recorded)
+        save_actions(path, recorded, native=False)
         save_s = time.perf_counter() - t0
         size = path.stat().st_size
         t0 = time.perf_counter()
-        loaded = load_actions(path, device="cuda")
+        loaded = load_actions(path, native=False, device="cuda")
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     for f in ("move", "look", "buttons"):
@@ -1517,7 +1550,288 @@ def compiler_phase():
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "c_game_engine_tpu"))
     if jax_like:
         raise AssertionError(f"compiler phase loaded {jax_like[:5]}")
-    return out, figures
+    return out, figures, src
+
+def bench_walk(cmap, start, yaw0, ticks, device):
+    """Single-env update_character (physics/character.py) for `ticks` ticks
+    of the bench stream (hold W at 6 m/s, turn 0.01 rad a tick, gravity
+    while airborne) from `start`, all on `device` (no host read). Returns
+    (positions [ticks, 3], on_ground [ticks])."""
+    import torch
+
+    from c_game_engine_tpu_torch.core.state import reset
+    from c_game_engine_tpu_torch.physics.character import update_character
+
+    actors = reset(cmap).actors
+    pos = torch.tensor(start, dtype=torch.float32, device=device)
+    vy = torch.zeros((), device=device)
+    grounded = torch.zeros((), dtype=torch.bool, device=device)
+    yaws = yaw0 + 0.01 * torch.arange(1, ticks + 1, dtype=torch.float32, device=device)
+    out_p, out_g = [], []
+    for t in range(ticks):
+        vy = torch.where(grounded, 0.0, vy + WALK_GRAVITY / 60.0)
+        vel = torch.stack([-torch.sin(yaws[t]) * WALK_SPEED, vy, -torch.cos(yaws[t]) * WALK_SPEED])
+        pos, v, grounded, _ = update_character(cmap, actors, pos, vel, 1.0 / 60.0, grounded, False, False)
+        vy = v[1]
+        out_p.append(pos)
+        out_g.append(grounded)
+    return torch.stack(out_p), torch.stack(out_g)
+
+
+def closing_phase(compiled, src, card):
+    """The single-env reference modules and the rest of the JAX package's
+    surface on the card: compute_laser_rays (one K2 launch for every env's
+    actors), single-env update_character and cast_ray against the CPU, the
+    grid-candidate resolve against K1 on a per-env-stream state (ROADMAP
+    fault f: a measurement, not a gate), the dual atlas against the two-tap
+    path, the bake's bounce term, and the native host library where this
+    machine can build it. Returns its figures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from c_game_engine_tpu_torch import native
+    from c_game_engine_tpu_torch.actors.behaviors import compute_laser_rays
+    from c_game_engine_tpu_torch.actors.defs import ActorFlags
+    from c_game_engine_tpu_torch.compiler import baker, sectors
+    from c_game_engine_tpu_torch.core.actions_io import load_actions, save_actions
+    from c_game_engine_tpu_torch.core.state import reset, tree_map
+    from c_game_engine_tpu_torch.long_run import walk_and_turn
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.physics import batched
+    from c_game_engine_tpu_torch.physics.character import update_character
+    from c_game_engine_tpu_torch.physics.raycast import cast_ray, forward_vector
+    from c_game_engine_tpu_torch.render.textures import build_atlas, sample
+    from c_game_engine_tpu_torch.utils import counters
+    from c_game_engine_tpu_torch.utils.mathx import const, quat_rotate
+
+    t_phase = time.perf_counter()
+    arena, arena_cpu = compiled["arena"]["cuda"][0], compiled["arena"]["cpu"][0]
+    cpu = lambda st: tree_map(lambda x: x.cpu(), st)
+    fig = {}
+
+    # ---- compute_laser_rays: every env's actors in one K2 launch
+    state = rollout(arena, reset_batch(arena, BATCH), bench_actions(CLOSING_TICKS, BATCH, "cuda"))
+    torch.cuda.synchronize()
+    counters.reset()
+    hit, beam = compute_laser_rays(arena, state.actors)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if counts["ray_tris"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"closing compute_laser_rays: launches {counts}, want one ray_tris")
+    n_rays = BATCH * arena.num_actors
+    # the same rays with their actor ids (compute_laser_rays returns hit and
+    # length), on the card and, for the first LASER_CPU_ENVS envs, the CPU
+    head = lambda st: tree_map(lambda x: x[:LASER_CPU_ENVS].cpu(), st)
+    hit_c, beam_c = compute_laser_rays(arena_cpu, head(state).actors)
+
+    def cast(cm, actors):
+        b = actors.pos.shape[0]
+        d = quat_rotate(actors.quat, const((0.0, 0.0, -1.0), actors.pos.device).expand_as(actors.pos))
+        return batched.cast_rays_batched(
+            cm, actors, actors.pos.reshape(-1, 3), d.reshape(-1, 3), 50.0, exclude=cm.siparams[:, 1].repeat(b),
+            require_flags=int(ActorFlags.CAN_BLOCK_LASERS), B_env=b, layout="interleaved")
+
+    h, f, a = (x.reshape(BATCH, -1)[:LASER_CPU_ENVS].cpu() for x in cast(arena, state.actors))
+    hc, fc, ac = (x.reshape(LASER_CPU_ENVS, -1) for x in cast(arena_cpu, head(state).actors))
+    frac_err = float((f - fc).abs().max())
+    beam_err = float((beam[:LASER_CPU_ENVS].cpu() - beam_c).abs().max())
+    if not (torch.equal(hit[:LASER_CPU_ENVS].cpu(), hit_c) and torch.equal(h, hc) and torch.equal(a, ac)
+            and frac_err <= 1e-5 and beam_err <= 50.0 * 1e-5):
+        raise AssertionError(f"closing compute_laser_rays: differs from the CPU (fraction {frac_err:.3g})")
+    laser_ms = cuda_time(lambda: compute_laser_rays(arena, state.actors))
+    fig["laser_rays"] = {"envs": BATCH, "rays": n_rays, "launches": counts, "ms": laser_ms,
+                         "hits": int(hit.sum()), "max_abs_err_fraction": frac_err}
+    print(f"closing compute_laser_rays: {BATCH} envs x {arena.num_actors} actors = {n_rays} rays after "
+          f"{CLOSING_TICKS} ticks of the bench stream, launches {counts} (one K2 launch); the first "
+          f"{LASER_CPU_ENVS} envs' hits and actor ids equal to the CPU's, fraction within {frac_err:.3g}; "
+          f"{laser_ms:.4f} ms a call on {card}", flush=True)
+
+    # ---- single-env update_character and cast_ray, card against CPU
+    walk = lambda cm, dev: bench_walk(cm, SPAWN_ARENA, 0.0, CLOSING_TICKS, dev)
+    walk(arena, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pos_g, on_g = walk(arena, "cuda")
+    torch.cuda.synchronize()
+    walk_ms = (time.perf_counter() - t0) * 1e3 / CLOSING_TICKS
+    pos_c, on_c = walk(arena_cpu, "cpu")
+    walk_err = float((pos_g.cpu() - pos_c).abs().max())
+    if walk_err > 2e-3 or not torch.equal(on_g.cpu(), on_c):
+        raise AssertionError(f"closing update_character: {walk_err:.3g} from the CPU, on_ground equal "
+                             f"{torch.equal(on_g.cpu(), on_c)}")
+    fig["update_character"] = {"ticks": CLOSING_TICKS, "ms_per_tick": walk_ms, "max_abs_err_pos": walk_err,
+                               "on_ground_ticks": int(on_g.sum())}
+    print(f"closing update_character: one env, {CLOSING_TICKS} ticks of the bench stream on arena, positions "
+          f"within {walk_err:.3g} of the CPU's, on_ground equal; {walk_ms:.3f} ms a tick on {card} (one env: "
+          f"launch-bound, each tick many small ops)", flush=True)
+
+    env0 = lambda st: tree_map(lambda x: x[0], st)
+    p0 = env0(state)
+    eye = p0.player.pos + const((0.0, 0.5, 0.0), "cuda")
+    fwd = forward_vector(p0.player.yaw, p0.player.pitch)
+    laser = 5  # tests/torch_export_map.py::arena_actors' laser row
+    l_dir = quat_rotate(p0.actors.quat[laser], const((0.0, 0.0, -1.0), "cuda"))
+    ray_args = [(eye, fwd, 10.0, -1, 0), (p0.actors.pos[laser], l_dir, 50.0, laser, int(ActorFlags.CAN_BLOCK_LASERS))]
+    got = []
+    for o, d, mx, ex, fl in ray_args:
+        hg, fg, ag = cast_ray(arena, p0.actors, o, d, mx, ex, fl)
+        hc_, fc_, ac_ = cast_ray(arena_cpu, cpu(p0).actors, o.cpu(), d.cpu(), mx, ex, fl)
+        if bool(hg) != bool(hc_) or int(ag) != int(ac_) or abs(float(fg) - float(fc_)) > 1e-5:
+            raise AssertionError(f"closing cast_ray: card ({bool(hg)}, {float(fg)}, {int(ag)}) != CPU "
+                                 f"({bool(hc_)}, {float(fc_)}, {int(ac_)})")
+        got.append((bool(hg), float(fg), int(ag)))
+    fig["cast_ray"] = {"interact": got[0], "laser": got[1]}
+    print(f"closing cast_ray: the interact ray (hit, fraction, actor) {got[0]} and the laser {got[1]}, equal on "
+          f"the card and the CPU", flush=True)
+
+    # ---- fault f: per-lane grid candidates against K1's per-block set
+    walked = rollout(arena, reset_batch(arena, BATCH), walk_and_turn(FAULT_F_TICKS, BATCH, "cuda"))
+    solid = batched._solid_actor_soa(arena, walked.actors)
+    box8, boxh = batched._make_kernel_ctx(solid)
+    pos, vel = walked.player.pos + walked.player.vel / 60.0, walked.player.vel
+    k1 = lambda: batched._resolve_dispatch(arena, pos, vel, box8, boxh)
+    grid = lambda: batched.resolve_capsule_batched(arena, pos, vel, solid)
+    (pk, vk, gk), (pg_, vg_, gg_) = k1(), grid()
+    d = (pk - pg_).abs().max(-1).values
+    lanes = int((d > 1e-3).sum())
+    k1_ms, grid_ms = cuda_time(k1), cuda_time(grid)
+    differ = torch.nonzero(d > 1e-3).squeeze(1)[:8].tolist()
+    fig["fault_f"] = {"envs": BATCH, "ticks": FAULT_F_TICKS, "lanes_over_1e-3": lanes,
+                      "max_abs_diff_pos": float(d.max()), "grounded_differ": int((gk != gg_).sum()),
+                      "mean_player_y": float(walked.player.pos[:, 1].mean()),
+                      "lanes_below_the_floor": int((walked.player.pos[:, 1] < 0.0).sum()), "k1_ms": k1_ms,
+                      "grid_ms": grid_ms,
+                      "differing_lanes": [{"lane": i, "pos": pos[i].tolist(), "k1": pk[i].tolist(),
+                                           "grid": pg_[i].tolist()} for i in differ]}
+    print(f"closing fault f: {BATCH} lanes of long_run's per-env stream after {FAULT_F_TICKS} ticks (mean player "
+          f"y {fig['fault_f']['mean_player_y']:.3f}, {fig['fault_f']['lanes_below_the_floor']} lanes below the "
+          f"floor): one resolve through K1 and through the per-lane grid "
+          f"candidates: {lanes} lanes differ by more than 1e-3 in position (largest {float(d.max()):.4g}), "
+          f"grounded differs on {fig['fault_f']['grounded_differ']}; K1 path {k1_ms:.4f} ms, grid path "
+          f"{grid_ms:.4f} ms a call on {card}; lanes (position, after K1, after the grid path): "
+          f"{[(x['lane'], [round(v, 3) for v in x['pos']], [round(v, 3) for v in x['k1']], [round(v, 3) for v in x['grid']]) for x in fig['fault_f']['differing_lanes']]}",
+          flush=True)
+
+    # ---- the dual atlas on arena_lit's textures
+    lit, lit_bundle = compiled["arena_lit"]["cuda"]
+    textures = [lit.aux["resolver"].texture(n) for n in lit_bundle.tex_names]
+    dual = build_atlas(textures, dual=True, device="cuda")
+    if not torch.equal(dual.blocked, lit_bundle.atlas.blocked):
+        raise AssertionError("closing dual atlas: its blocked rows differ from the bundle's atlas")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    taps = RENDER_BATCH * SIZE * SIZE
+    tid = torch.randint(0, len(textures), (taps,), generator=g, device="cuda", dtype=torch.int32)
+    uv = torch.rand((taps, 2), generator=g, device="cuda") * 4.0 - 1.5
+    lod = torch.rand((taps,), generator=g, device="cuda") * 7.0
+    one, two = sample(dual, tid, uv, lod=lod), sample(lit_bundle.atlas, tid, uv, lod=lod)
+    if not torch.equal(one.view(torch.int32), two.view(torch.int32)):
+        raise AssertionError(f"closing dual atlas: {int((one != two).any(-1).sum())} taps differ from the two-tap path")
+    dual_ms = cuda_time(lambda: sample(dual, tid, uv, lod=lod), reps=5)
+    two_ms = cuda_time(lambda: sample(lit_bundle.atlas, tid, uv, lod=lod), reps=5)
+    fig["dual_atlas"] = {"taps": taps, "textures": len(textures), "atlas": list(dual.dual.shape), "dual_ms": dual_ms,
+                         "two_tap_ms": two_ms}
+    print(f"closing dual atlas: arena_lit's {len(textures)} textures, atlas {list(dual.dual.shape)}; {taps} trilinear "
+          f"taps through the dual rows equal the two-tap path bit for bit; dual {dual_ms:.4f} ms, two-tap "
+          f"{two_ms:.4f} ms a call on {card}", flush=True)
+
+    # ---- the bake's bounce term
+    def bake_args(path):
+        """The arguments the compile of `path` hands bake_lightmap (its own
+        bake left out)."""
+        seen = {}
+        real = sectors.bake_lightmap
+
+        def capture(*a, **k):
+            seen["args"] = a
+            return np.zeros((a[1][1], a[1][0], 4), np.float32)
+
+        sectors.bake_lightmap = capture
+        try:
+            sectors.compile_map_source(str(path), device="cuda")
+        finally:
+            sectors.bake_lightmap = real
+        return seen["args"]
+
+    def timed_bake(args, device):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lm = sectors.bake_lightmap(*args, bounces=1, device=device)
+        torch.cuda.synchronize()
+        return lm, time.perf_counter() - t
+
+    rooms = bake_args(src["rooms"])
+    timed_bake(rooms, "cuda")  # each op's first launch
+    lm_g, rooms_s = timed_bake(rooms, "cuda")
+    lm_c, rooms_cpu_s = timed_bake(rooms, "cpu")
+    mask = np.zeros(lm_g.shape[:2], bool)
+    for sf in rooms[0]:
+        (x0, y0), (w, h) = sf.lm_rect, sf.lm_size_luxels
+        mask[y0 : y0 + h, x0 : x0 + w] = True
+    diff = np.abs(lm_g - lm_c).max(-1)[mask]
+    within = float((diff <= 1e-4).mean())
+    if within < 0.99 or diff.max() >= 0.02:
+        raise AssertionError(f"closing bounce bake rooms.json: {within:.6f} of luxels within 1e-4 of the CPU, "
+                             f"largest {diff.max():.3g}")
+    surfaces, atlas_size, lights, tris = bake_args(src["halls"])
+    sub = (surfaces[::HALLS_EVERY], atlas_size, lights, tris)
+    lm_h, halls_s = timed_bake(sub, "cuda")
+    luxels = int(sum(sf.lm_size_luxels[0] * sf.lm_size_luxels[1] for sf in sub[0]))
+    if not np.isfinite(lm_h).all():
+        raise AssertionError("closing bounce bake halls.json: non-finite luxels")
+    fig["bounce_bake"] = {"rooms_luxels": int(diff.size), "rooms_s": rooms_s, "rooms_cpu_s": rooms_cpu_s,
+                          "rooms_share_within_1e-4": within, "rooms_max_abs_diff": float(diff.max()),
+                          "rooms_luxels_over_1e-4": int((diff > 1e-4).sum()), "halls_surfaces": len(sub[0]),
+                          "halls_luxels": luxels, "halls_s": halls_s, "halls_occluders": len(tris)}
+    print(f"closing bounce bake: rooms.json with bounces=1, {rooms_s:.4f} s on the card, {rooms_cpu_s:.4f} s on the "
+          f"CPU, {within:.6f} of {diff.size} luxels within 1e-4 ({int((diff > 1e-4).sum())} beyond, largest "
+          f"{diff.max():.3g}); one in every {HALLS_EVERY} of halls.json's surfaces ({len(sub[0])}, {luxels} luxels, "
+          f"{len(tris)} occluders) {halls_s:.4f} s on the card", flush=True)
+
+    # ---- the native host library, where this machine can build it
+    if native.have_toolchain():
+        t0 = time.perf_counter()
+        native.lib()
+        build_s = time.perf_counter() - t0
+        tris = arena.tris[arena.tri_valid].cpu().numpy()
+        actors = reset(arena).actors
+        vel = torch.tensor([2.0, -1.0, -3.0], device="cuda")
+        pos_t, g_t = torch.tensor(NATIVE_START, device="cuda"), torch.zeros((), dtype=torch.bool, device="cuda")
+        pos_o, g_o, worst = np.array(NATIVE_START, np.float64), False, 0.0
+        for i in range(90):
+            pos_t, _, g_t, _ = update_character(arena, actors, pos_t, vel, 1.0 / 60.0, g_t, False, False)
+            pos_o, _, g_o = native.character_step_oracle(tris, pos_o, vel.cpu().numpy(), 1 / 60, g_o)
+            worst = max(worst, float(np.abs(pos_t.cpu().numpy() - pos_o).max()))
+        if worst > 0.06 or not (bool(g_t) and g_o):
+            raise AssertionError(f"closing native oracle: {worst:.3g} from the port's update_character, grounded "
+                                 f"{bool(g_t)} / {g_o}")
+        stream = walk_and_turn(TICKS, BATCH, "cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {c: Path(tmp) / f"{c}.cgas" for c in (True, False)}
+            codec_s = {}
+            for c, path in paths.items():
+                t0 = time.perf_counter()
+                save_actions(path, stream, native=c)
+                codec_s[c] = time.perf_counter() - t0
+            data = {c: path.read_bytes() for c, path in paths.items()}
+            back = load_actions(paths[False], native=True, device="cuda")
+        if data[True] != data[False] or not all(torch.equal(getattr(back, k), getattr(stream, k))
+                                                for k in ("move", "look", "buttons")):
+            raise AssertionError("closing native CGAS: the two codecs' bytes or the read-back differ")
+        fig["native"] = {"build_s": build_s, "oracle_ticks": 90, "oracle_max_abs_diff": worst, "cgas_bytes": len(data[True]),
+                         "cgas_native_s": codec_s[True], "cgas_python_s": codec_s[False]}
+        print(f"closing native: built in {build_s:.2f} s (g++, zlib); the oracle over 90 ticks within {worst:.3g} of "
+              f"the port's update_character on the card; CGAS {TICKS} x {BATCH} equal bytes from both codecs "
+              f"({len(data[True]):,} bytes; C {codec_s[True]:.3f} s, Python {codec_s[False]:.3f} s)", flush=True)
+    else:
+        fig["native"] = None
+        print("closing native: this machine has no g++ with zlib's header; the native phase is left out", flush=True)
+    fig["phase_s"] = time.perf_counter() - t_phase
+    print(f"closing phase: {fig['phase_s']:.1f} s", flush=True)
+    return fig
+
 
 def main() -> int:
     import torch
@@ -1540,7 +1854,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(KERNELS)} kernels and the graph's if-node "
           f"helper in parallel (nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
-    compiled, compiler = compiler_phase()
+    compiled, compiler, sources = compiler_phase()
     arena, bodies_map = compiled["arena"]["cuda"][0], compiled["arena_bodies"]["cuda"][0]
     lit, lit_bundle = compiled["arena_lit"]["cuda"]
     orb, orb_bundle = compiled["arena_orb"]["cuda"]
@@ -1643,6 +1957,7 @@ def main() -> int:
     by_path["demo"] = {"counts": counts}
     extras["app"], counts = app_phase(card)
     by_path["app"] = {"counts": counts}
+    extras["closing"] = closing_phase(compiled, sources, card)
     for cm, name in ((arena, "arena"), (bodies_map, "arena_bodies")):
         for (batch, collects), g in cm.graphs.items():
             print(f"graph {name} x {batch}{' (collect)' if collects else ''}: capture {g.capture_s:.2f} s, "

@@ -138,7 +138,7 @@ def test_cast_rays_matches_xla_path(world):
     t = lambda a: torch.as_tensor(a)
     ht, ft, at = (a.numpy() for a in cast_rays_batched(
         tc, ts.actors, t(o), t(d), t(mx), exclude=t(ex), require_flags=t(fl), B_env=B,
-        static_only=t(st)))
+        static_only=t(st), layout="kind_major"))
     np.testing.assert_array_equal(ht, hj)
     np.testing.assert_array_equal(at, aj)
     np.testing.assert_allclose(ft, fj, atol=1e-5, rtol=0)
@@ -186,7 +186,7 @@ def test_small_batch_matches_the_pallas_path(world, monkeypatch):
         *(torch.as_tensor(a) for a in args[2:])))
     ht, ft, at = (a.numpy() for a in cast_rays_batched(
         tc, ts.actors, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(mx),
-        exclude=torch.as_tensor(ex), B_env=b))
+        exclude=torch.as_tensor(ex), B_env=b, layout="kind_major"))
     np.testing.assert_allclose(pt, pj, atol=1e-5, rtol=0)
     np.testing.assert_allclose(vt, vj, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(gt, gj)
