@@ -19,6 +19,12 @@ import torch
 
 __version__ = "0.1.0"
 
+TARGET_TPS = 60  # reference: engine/include/engine/Engine.h:12, physics/Physics.h:12
+MIN_TPS = 10  # reference: engine/include/engine/physics/Physics.h:14
+GRAVITY = -9.81  # reference: engine/include/engine/physics/Physics.h:34
+COLLISION_SUBSTEPS = 2  # reference: engine/src/physics/MapPhysics.c:107
+MAX_CONTACT_CONSTRAINTS = 16384  # reference: engine/include/engine/physics/Physics.h:16
+
 # Geometry stays in full f32. TF32 keeps ~3 decimal digits and would round
 # the one-hot contractions of the signal handlers (the Precision.HIGHEST
 # einsum of actors/handlers.py:124 in the JAX package) and any projection

@@ -27,6 +27,8 @@ class Button(enum.IntEnum):
 
 
 NUM_BUTTONS = len(Button)
+# flat action vector: move_x, move_z, look_dx, look_dy, buttons...
+ACTION_DIM = 4 + NUM_BUTTONS
 
 
 @dataclasses.dataclass
@@ -42,6 +44,20 @@ class Actions:
             look=torch.zeros((*batch_shape, 2), dtype=torch.float32, device=device),
             buttons=torch.zeros((*batch_shape, NUM_BUTTONS), dtype=torch.bool, device=device),
         )
+
+    @staticmethod
+    def from_flat(flat: torch.Tensor) -> "Actions":
+        """[..., ACTION_DIM] -> Actions; a button is down where its entry
+        is above 0.5."""
+        return Actions(
+            move=flat[..., 0:2].to(torch.float32),
+            look=flat[..., 2:4].to(torch.float32),
+            buttons=flat[..., 4 : 4 + NUM_BUTTONS] > 0.5,
+        )
+
+    def to_flat(self) -> torch.Tensor:
+        """[..., ACTION_DIM] float32: move, look, buttons as 0/1."""
+        return torch.cat([self.move, self.look, self.buttons.to(torch.float32)], dim=-1)
 
     def __getitem__(self, t) -> "Actions":
         """Index the leading (time) axis of a [T, B, ...] stream."""

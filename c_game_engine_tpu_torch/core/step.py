@@ -41,6 +41,7 @@ from c_game_engine_tpu_torch.utils.mathx import (
 )
 
 TPS = 60.0
+DT = 1.0 / TPS
 MOVE_SPEED = 6.0  # PlayerPhysics.c:40
 SLOW_MOVE_SPEED = 0.6  # PlayerPhysics.c:41
 JUMP_SPEED = 4.25  # PlayerPhysics.c:43

@@ -39,7 +39,7 @@ from c_game_engine_tpu_torch.utils import counters
 
 T_CHK = 4096  # rows per chunk
 SUB = 64  # rows per subchunk
-N_ROWS = 16
+N_COLS_BIG = 16  # fields of the table (csrc/raster_tiles_big.cu: N_ROWS)
 DEAD = 1e30  # the bbox bound of a row that can never overlap a tile
 
 
@@ -62,8 +62,8 @@ def level_bboxes(bxmin, bxmax, bymin, bymax, group):
 def _check(trit, cbox, scb, exclude, tile_on, height, width):
     if height % TILE_H or width % TILE_W:
         raise NotImplementedError(f"K5 needs whole {TILE_H}x{TILE_W} tiles, got {height}x{width}")
-    if trit.ndim != 3 or trit.shape[1] != N_ROWS or trit.shape[2] == 0 or trit.shape[2] % T_CHK:
-        raise ValueError(f"trit must be [B, {N_ROWS}, NC * {T_CHK}], got {tuple(trit.shape)}")
+    if trit.ndim != 3 or trit.shape[1] != N_COLS_BIG or trit.shape[2] == 0 or trit.shape[2] % T_CHK:
+        raise ValueError(f"trit must be [B, {N_COLS_BIG}, NC * {T_CHK}], got {tuple(trit.shape)}")
     b, nc = trit.shape[0], trit.shape[2] // T_CHK
     n_tiles = (height // TILE_H) * (width // TILE_W)
     for name, x, shape, dt in (

@@ -38,6 +38,26 @@ from c_game_engine_tpu_torch.physics.grid import cell_of
 from c_game_engine_tpu_torch.utils import counters
 from c_game_engine_tpu_torch.utils.mathx import const, norm
 
+# the rigid-body solver's constants (physics/bodies.py steps the bodies),
+# copied from c_game_engine_tpu/physics/batched.py:65-89
+GRAVITY_Y = -9.81
+MAP_FRICTION = 4.25
+# combined constraint sweeps per substep: the triangle solve, then the pair
+# solve, so a stack's weight reaches the floor contact within a tick
+SOLVER_ITERS = 6
+# island sleeping (Jolt: 0.03 m/s point velocity for 0.5 s = 30 ticks)
+SLEEP_SPEED2 = 0.03 * 0.03
+SLEEP_AFTER = 30
+BAUMGARTE = 0.2
+PENETRATION_SLOP = 0.005
+RELAX = 0.7
+REST_BLEED = 0.6  # per-tick velocity kept by slow flat-supported bodies
+MANIFOLD_K = 4
+# pair narrowphase: P_CAP candidate slots per env, each a K2-point manifold
+P_CAP = 16
+K2 = 4
+PAIR_CAND_SLACK = 0.3
+
 
 def solid_mask(cmap, active):
     """[B, N] actors that collide: active, with a shape, not motion NONE,

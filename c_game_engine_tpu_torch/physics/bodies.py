@@ -46,7 +46,22 @@ from c_game_engine_tpu_torch.core.state import PAIR_WARM_CAP
 from c_game_engine_tpu_torch.ops.body_contacts import BLK as PBLK
 from c_game_engine_tpu_torch.ops.body_contacts import BODY_ROWS, body_contacts
 from c_game_engine_tpu_torch.physics import geometry_soa as g
-from c_game_engine_tpu_torch.physics.batched import solid_mask
+from c_game_engine_tpu_torch.physics.batched import (
+    BAUMGARTE,
+    GRAVITY_Y,
+    K2,
+    MANIFOLD_K,
+    MAP_FRICTION,
+    P_CAP,
+    PAIR_CAND_SLACK,
+    PENETRATION_SLOP,
+    RELAX,
+    REST_BLEED,
+    SLEEP_AFTER,
+    SLEEP_SPEED2,
+    SOLVER_ITERS,
+    solid_mask,
+)
 from c_game_engine_tpu_torch.physics.character import (
     CAPSULE_HALF_HEIGHT,
     CAPSULE_RADIUS,
@@ -55,20 +70,6 @@ from c_game_engine_tpu_torch.physics.character import (
 from c_game_engine_tpu_torch.utils import counters
 from c_game_engine_tpu_torch.utils.mathx import const
 
-# copied from c_game_engine_tpu/physics/batched.py:65-89
-GRAVITY_Y = -9.81
-MAP_FRICTION = 4.25
-SOLVER_ITERS = 6
-SLEEP_SPEED2 = 0.03 * 0.03
-SLEEP_AFTER = 30
-BAUMGARTE = 0.2
-PENETRATION_SLOP = 0.005
-RELAX = 0.7
-REST_BLEED = 0.6
-MANIFOLD_K = 4
-P_CAP = 16
-K2 = 4
-PAIR_CAND_SLACK = 0.3
 LAT_M = 0.05  # lateral clip margin of the pair manifold (batched.py:853)
 
 assert P_CAP <= PAIR_WARM_CAP, "warm-start cache narrower than the pair table"

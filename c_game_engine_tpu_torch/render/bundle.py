@@ -119,6 +119,10 @@ class RenderBundle:
     has_alpha: bool = True
     tex_names: tuple = ()
 
+    @property
+    def num_map_tris(self):
+        return self.map_pos.shape[0]
+
     @functools.cached_property
     def graphs(self) -> dict:
         """Render graphs captured for this bundle, by their key

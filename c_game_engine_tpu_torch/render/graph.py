@@ -20,8 +20,9 @@ reads: those whose storage an op of the call takes. A capture that fails
 raises; nothing falls back to the eager path.
 
 A bundle keeps one graph per key (`RenderBundle.graphs`): the function
-name, the options, the batch. A graph captured with another map object
-is replaced, its buffers and pool freed first.
+name, the options (among them the resolved route and render/raster.py's
+CULL_MODE, read at each call), the batch. A graph captured with another
+map object is replaced, its buffers and pool freed first.
 """
 
 from __future__ import annotations

@@ -15,8 +15,15 @@ the full frame instead (a `core/gates.py` gate: a host `if` eagerly, a
 conditional node in a CUDA graph).
 
 `render` and `render_batch` take the JAX package's parameters in its
-order. The route follows the JAX _resolve_backend on a TPU:
-  * "tiles" (backend None/"auto" up to PALLAS_MAX_BOUND = 65,536 live
+order. Two module switches, as in the JAX module: CULL_MODE ("neg", the
+default, keeps triangles of negative screen area; "pos" the other side;
+"none" every valid row; two-sided rows always) at both cull sites, before
+and after the near-plane clip, on every route (the kernels do no culling:
+the culled soup reaches them); BACKEND, what backend=None means. A
+render graph's key holds both, so a switch between two calls captures a
+new graph and never replays one taken under the other setting. The route
+follows the JAX _resolve_backend on a TPU:
+  * "tiles" (backend "auto" up to PALLAS_MAX_BOUND = 65,536 live
     triangles, or "pallas"): the T_CULL compaction, `_clip_near` (1
     triangle -> up to 2), the tri48 table and kernel K4
     (ops/raster_tiles.py), which bins the rows into tiles, keeps each
@@ -68,7 +75,12 @@ from c_game_engine_tpu_torch.utils.mathx import (
 CHUNK = 64
 MAGIC_XY = (0.06711056, 0.00583715)
 MAGIC_Z = 52.9829189
-KIND_MAP, KIND_MODEL, KIND_WALL, KIND_SKY = 0, 1, 2, 3
+CULL_MODE = "neg"  # neg | pos | none (debug)
+BACKEND = "auto"  # what backend=None means: auto | xla | pallas | pallas_big
+KIND_MAP = 0
+KIND_MODEL = 1
+KIND_WALL = 2
+KIND_SKY = 3
 PALLAS_MAX_BOUND = 65536  # beyond it the soup streams through K5
 T_CULL = 4096  # post-cull live-triangle cap of the tile route
 CLIP_CAP = 2048  # big route: near-plane-crossing rows clipped per env
@@ -230,19 +242,32 @@ def _concat_parts(parts):
     return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
 
 
-def _resolve_backend(backend, height, width, bundle):
+def _resolve_backend(backend, height, width, bundle=None):
     """The route of the JAX `backend` as the JAX _resolve_backend picks it
-    on a TPU: "pallas" is "tiles" (K4), "pallas_big" is "big" (K5), None
-    or "auto" is "tiles" up to PALLAS_MAX_BOUND live triangles and "big"
-    above, and "xla" is "xla" (`_pass1_xla`), which also takes every frame
-    that is not whole 8 x 128 tiles."""
-    if backend not in (None, "auto", "pallas", "pallas_big", "xla"):
+    on a TPU: None is the module's BACKEND, "pallas" is "tiles" (K4),
+    "pallas_big" is "big" (K5), "auto" is "tiles" up to PALLAS_MAX_BOUND
+    live triangles and "big" above (a bundle of None: "tiles"), and "xla"
+    is "xla" (`_pass1_xla`), which also takes every frame that is not whole
+    8 x 128 tiles."""
+    backend = BACKEND if backend is None else backend
+    if backend not in ("auto", "pallas", "pallas_big", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "xla" or height % RTILE_H or width % RTILE_W:
         return "xla"
-    if backend in (None, "auto"):
-        return "big" if bundle.live_tri_bound > PALLAS_MAX_BOUND else "tiles"
+    if backend == "auto":
+        return "big" if bundle is not None and bundle.live_tri_bound > PALLAS_MAX_BOUND else "tiles"
     return "tiles" if backend == "pallas" else "big"
+
+
+def _front(area, twosided):
+    """The rows CULL_MODE keeps by their signed screen area (JAX
+    raster.py:530, :586): "neg" area < 0 (the reference's front faces),
+    "pos" area > 0, anything else every row; two-sided rows always."""
+    if CULL_MODE == "neg":
+        return (area < 0.0) | twosided
+    if CULL_MODE == "pos":
+        return (area > 0.0) | twosided
+    return torch.ones_like(twosided)
 
 
 def _tile_pack(a, order_c, nty, ntx):
@@ -448,7 +473,7 @@ def render_batch(bundle, cmap, states, height=256, width=256, fov_deg=90.0, back
         from c_game_engine_tpu_torch.render.graph import replay
 
         key = ("render_batch", height, width, fov_deg, _resolve_backend(backend, height * ssaa, width * ssaa, bundle),
-               mipmaps, ssaa, aniso, debug_wireframe)
+               CULL_MODE, mipmaps, ssaa, aniso, debug_wireframe)
         return replay(bundle, cmap, states, key, lambda st: render_batch_eager(
             bundle, cmap, st, height, width, fov_deg, backend, mipmaps, ssaa, aniso, debug_wireframe))
     return render_batch_eager(bundle, cmap, states, height, width, fov_deg, backend, mipmaps, ssaa, aniso,
@@ -508,7 +533,9 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
         ))
     tri = _concat_parts(parts)
     t_total = tri["pos"].shape[1]
-    pad = (-t_total) % CHUNK
+    # an empty soup (no map triangle, no sky) keeps one chunk of dead rows:
+    # the kernels take a table of at least one row
+    pad = (-t_total) % CHUNK if t_total else CHUNK
     if pad:
         tri = {k: torch.cat([v, torch.zeros((b, pad, *v.shape[2:]), dtype=v.dtype, device=dev)], 1)
                for k, v in tri.items()}
@@ -532,7 +559,7 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
     sy0 = (clip[..., 1] * inv_w0 + 1.0) * 0.5 * height
     area0 = (sx0[..., 1] - sx0[..., 0]) * (sy0[..., 2] - sy0[..., 0]) - (
         sy0[..., 1] - sy0[..., 0]) * (sx0[..., 2] - sx0[..., 0])
-    front0 = (area0 < 0.0) | tri["twosided"]
+    front0 = _front(area0, tri["twosided"])
     keep = tri["valid"] & any_pos & (~all_pos | (front0 & (area0.abs() > 1e-9)))
     t = keep.shape[1]
     if route == "tiles":
@@ -570,7 +597,7 @@ def _render_envs(bundle, cmap, state, height, width, fov_deg, mipmaps, backend=N
 
     area2 = (sx[..., 1] - sx[..., 0]) * (sy[..., 2] - sy[..., 0]) - (
         sy[..., 1] - sy[..., 0]) * (sx[..., 2] - sx[..., 0])
-    front = (area2 < 0.0) | tri["twosided"]
+    front = _front(area2, tri["twosided"])
     tri_ok = tri["valid"] & ok_w & front & (area2.abs() > 1e-9)
 
     # ---- per-triangle mip level, sampler flags and the enc word ----
@@ -952,8 +979,8 @@ def render_with_hud_batch(bundle, cmap, states, height=256, width=256, fov_deg=9
     if states.player.pos.device.type == "cuda":
         from c_game_engine_tpu_torch.render.graph import replay
 
-        key = ("render_with_hud", height, width, fov_deg, _resolve_backend(backend, height, width, bundle), mipmaps,
-               aniso)
+        key = ("render_with_hud", height, width, fov_deg, _resolve_backend(backend, height, width, bundle), CULL_MODE,
+               mipmaps, aniso)
         return replay(bundle, cmap, states, key, lambda st: render_with_hud_batch_eager(
             bundle, cmap, st, height, width, fov_deg, backend, mipmaps, aniso))
     return render_with_hud_batch_eager(bundle, cmap, states, height, width, fov_deg, backend, mipmaps, aniso)

@@ -33,8 +33,8 @@ class TextureAtlas:
     table: torch.Tensor  # [T, 6] f32: x0, y0, w, h, repeat, filter
     mips: torch.Tensor  # [T, MAX_MIPS, 4] f32: x0, y0, w, h per level
     n_mips: torch.Tensor  # [T] f32 (1 = no chain)
-    mip_pairs: torch.Tensor  # [T, MAX_MIPS, 8] f32: level L rect | level min(L+1, last) rect
-    flag_words: torch.Tensor  # [T] i32: repeat << 21 | filter << 22
+    mip_pairs: torch.Tensor | None = None  # [T, MAX_MIPS, 8] f32: level L rect | level min(L+1, last) rect
+    flag_words: torch.Tensor | None = None  # [T] i32: repeat << 21 | filter << 22
     # dual-level rows: dual[y, x, 0:16] = blocked[y, x]; dual[y, x, 16:52] =
     # the next mip level's 3x3 texel neighbourhood (row-major (dy, dx), 4
     # channels each) anchored at (x // 2 - 1, y // 2 - 1) in that level,
@@ -43,6 +43,11 @@ class TextureAtlas:
     # trilinear tap is one gather. A chain's last level embeds itself (its
     # blend fraction is 0). None unless build_atlas(dual=True).
     dual: torch.Tensor | None = None  # [AH, AW, 52]
+
+    @property
+    def size(self):
+        """(width, height) of the blocked atlas."""
+        return self.blocked.shape[1], self.blocked.shape[0]
 
 
 def _downsample(px: np.ndarray) -> np.ndarray:

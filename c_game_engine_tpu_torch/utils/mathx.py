@@ -58,6 +58,11 @@ def dot(a, b, axis=-1):
     return torch.sum(a * b, dim=axis)
 
 
+# (x, y, z, w). A tuple, not a tensor: a module-level tensor would live on
+# one device, and const(QUAT_IDENTITY, device) gives it on any device once.
+QUAT_IDENTITY = (0.0, 0.0, 0.0, 1.0)
+
+
 def quat_from_axis_angle(axis, angle):
     """Unit quaternion for `angle` radians about unit `axis`.
     Broadcasts: axis [..., 3], angle [...]."""

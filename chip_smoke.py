@@ -135,6 +135,30 @@ Phases (any failure exits non-zero and prints no result line):
      library: its double-precision oracle within 0.06 of update_character
      on the card over 90 ticks, and a 240 x 4096 CGAS stream written by
      both codecs byte for byte the same.
+  11. the oracle phase (`oracle_phase`): the JAX package's closed-form
+     acceptance tests at full width through the tick graph, on maps that
+     tests/torch_oracle_maps.py writes (tests/worldgen.py's box room,
+     tests/test_solver_oracle.py's 55-degree ramp) and the port compiles
+     on the card, 4096 lanes each from its own initial condition (seed
+     0): a physbox dropped from 0.5-2 m (freefall within 1e-3 of the
+     substepped closed form until 0.35 m above rest, no rebound above
+     rest + 0.05, rest within 0.05 of -0.8) and an npc_john kicked at 1-4
+     m/s in any heading after 120 ticks (deceleration over 10 ticks within
+     [0.5, 1.5] mu g, below 0.15 m/s 30 ticks later; lanes outside that
+     last bar must each show ROADMAP fault r's signature), K3 on every
+     tick; the player at any yaw (rests at -0.55, walks 3.0 +- 0.1 m
+     along its forward in 30 ticks, jumps 0.921 +- 0.06 and lands, walks
+     into the walls for 240 ticks and stays inside them), K1 and K2; the
+     npc on the 55-degree ramp from 0.5-1.5 m (slide acceleration within
+     [0.5, 1.5] g (sin - mu cos), downhill); the lanes outside each bar, ms
+     a tick and K1-K3 launches a tick of each rollout; the first 256 lanes
+     against the CPU port on every tick under the parity bars (player
+     2e-3, on_ground equal, actors 5e-3), which also holds them to every
+     bar; then arena_lit (K4) and arena_orb (K5) under render/raster.py's
+     CULL_MODE neg, pos, none and neg again through the render graph: each
+     frame batch equal to render_batch_eager under the same mode, both
+     passes of the kernel equal to its plain version, the live rows that
+     reach the kernel, the last neg frames equal to the first.
 The render path runs through its CUDA graphs (render/graph.py): on the
 card render_batch and render_with_hud_batch replay one captured graph per
 option set, the reveal overflow a conditional node in it. So phase 3 also
@@ -206,6 +230,17 @@ SPAWN_ARENA, NATIVE_START = (9.0, 0.45, -2.0), (-20.0, 0.6, -20.0)
 # envs of the laser rays also cast on the CPU (each env's rays see only its
 # own actors)
 LASER_CPU_ENVS = 256
+# the oracle phase: lanes on the card (each from its own initial
+# condition) and of them on the CPU; the maps (tests/torch_oracle_maps.py);
+# the flat map's ticks before the kick and after it; the room's ticks (W
+# from tick WALL_FROM into a wall); the ramp's
+ORACLE_LANES, ORACLE_CPU_LANES = 4096, 256
+ORACLE_MAPS = ("flat", "room", "ramp55")
+FLAT_SETTLE, FLAT_KICK, ROOM_TICKS, WALL_FROM, RAMP_TICKS = 120, 40, 391, 151, 90
+# ROADMAP fault r (a reference fault the port copies): a cylinder kicked
+# across the floor's diagonal edge keeps creeping along it; the lanes
+# outside the kinetic friction's at-rest bar that show its signature
+FAULT_R = "of them creeping along the floor's diagonal edge (ROADMAP fault r)"
 
 # H100 SXM published peaks (float32 outside the tensor cores; HBM3)
 PEAK_FLOPS = 67e12
@@ -1832,6 +1867,361 @@ def closing_phase(compiled, src, card):
     print(f"closing phase: {fig['phase_s']:.1f} s", flush=True)
     return fig
 
+# ---------------------------------------------------------------- oracles
+
+
+def oracle_row(state):
+    """The oracle rollouts' collected row per env: player position and
+    on_ground, then the actors' positions, quaternions, velocities and
+    sleep counters, [B, 4 + 11 N] float32."""
+    import torch
+
+    p, a = state.player, state.actors
+    return torch.cat([p.pos, p.on_ground[:, None].float(), a.pos.flatten(1), a.quat.flatten(1), a.vel.flatten(1),
+                      a.sleep.float()], 1)
+
+
+def oracle_fields(rows, n):
+    """oracle_row's [T, B, W] rows as named numpy arrays."""
+    r = rows.cpu().numpy()
+    t, b = r.shape[:2]
+    cut = lambda lo, k: r[..., lo:lo + n * k].reshape(t, b, n, k)
+    return {"pos": r[..., :3], "on_ground": r[..., 3] > 0.5, "actors.pos": cut(4, 3), "actors.quat": cut(4 + 3 * n, 4),
+            "actors.vel": cut(4 + 7 * n, 3), "actors.sleep": r[..., 4 + 10 * n:]}
+
+
+def oracle_conditions(lanes, seed=0):
+    """Each lane's initial condition, from `seed`: the drop height above
+    rest, the kick's speed and heading, the player's yaw and the ramp
+    body's start height."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"drop": rng.uniform(0.5, 2.0, lanes), "v0": rng.uniform(1.0, 4.0, lanes),
+            "heading": rng.uniform(0.0, 2 * np.pi, lanes), "yaw": rng.uniform(0.0, 2 * np.pi, lanes),
+            "ramp_y": rng.uniform(0.5, 1.5, lanes)}
+
+
+def oracle_actions(ticks, lanes, device, w=(), jump=()):
+    """[T, B] actions: W held on the ticks in `w`, JUMP on those in `jump`."""
+    import torch
+
+    from c_game_engine_tpu_torch.core.actions import NUM_BUTTONS, Actions
+
+    move = torch.zeros((ticks, lanes, 2), device=device)
+    buttons = torch.zeros((ticks, lanes, NUM_BUTTONS), dtype=torch.bool, device=device)
+    for t in w:
+        move[t, :, 1] = -1.0
+    for t in jump:
+        buttons[t, :, 0] = True
+    return Actions(move=move, look=torch.zeros_like(move), buttons=buttons)
+
+
+def oracle_runs(paths, device, cond):
+    """The three oracle maps, compiled on `device`, each lane from its own
+    initial condition (cond's arrays), rolled out through rollout_collect
+    (the tick graph on a card). Returns {oracle map: (fields, ticks, ms a
+    tick, {kernel: launches})}, the rows' actor indices and the launches of
+    the whole phase; every count is reset just before the rollouts."""
+    import torch
+
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
+    from c_game_engine_tpu_torch.models.sim import load_named_map, reset_batch, rollout_collect
+    from c_game_engine_tpu_torch.utils import counters
+
+    lanes = len(cond["drop"])
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    cms = {name: load_named_map(str(paths[name]), device, [paths["assets"]]) for name in ORACLE_MAPS}
+    rows_of = {name: {c: i for i, c in enumerate(cm.aux["actor_classes"])} for name, cm in cms.items()}
+    for cm in cms.values():  # capture each map's collect graph before the counts start
+        rollout_collect(cm, reset_batch(cm, lanes), oracle_actions(2, lanes, device), oracle_row)
+
+    def timed(cm, state, acts):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        state, rows = rollout_collect(cm, state, acts, oracle_row)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return state, rows, time.perf_counter() - t0, {k: v - before[k] for k, v in kernel_counts().items()}
+
+    out = {}
+    counters.reset()
+    # flat: the drop from tick 0, the kick on tick FLAT_SETTLE
+    cm = cms["flat"]
+    john, box = rows_of["flat"]["NPC_JOHN"], rows_of["flat"]["PHYSBOX"]
+    st = reset_batch(cm, lanes)
+    st.actors.pos[:, box, 1] = -0.8 + f32(cond["drop"])
+    st, rows1, dt1, k1 = timed(cm, st, oracle_actions(FLAT_SETTLE, lanes, device))
+    head = f32(cond["heading"])
+    st.actors.vel[:, john] = f32(cond["v0"])[:, None] * torch.stack([torch.cos(head), torch.zeros_like(head),
+                                                                      torch.sin(head)], 1)
+    st.actors.sleep[:, john] = 0
+    st, rows2, dt2, k2 = timed(cm, st, oracle_actions(FLAT_KICK, lanes, device))
+    ticks = FLAT_SETTLE + FLAT_KICK
+    out["flat"] = (oracle_fields(torch.cat([rows1, rows2]), st.actors.pos.shape[1]), ticks, 1e3 * (dt1 + dt2) / ticks,
+                   {k: k1[k] + k2[k] for k in k1})
+    # room: settle, walk, jump, walk into a wall, at each lane's yaw
+    cm = cms["room"]
+    st = reset_batch(cm, lanes)
+    st.player.yaw[:] = f32(cond["yaw"])
+    acts = oracle_actions(ROOM_TICKS, lanes, device, w=[*range(30, 60), *range(WALL_FROM, ROOM_TICKS)], jump=[60])
+    st, rows, dt, k = timed(cm, st, acts)
+    out["room"] = (oracle_fields(rows, st.actors.pos.shape[1]), ROOM_TICKS, 1e3 * dt / ROOM_TICKS, k)
+    # ramp55: the slide from each lane's start height
+    cm = cms["ramp55"]
+    st = reset_batch(cm, lanes)
+    st.actors.pos[:, rows_of["ramp55"]["NPC_JOHN"], 1] = f32(cond["ramp_y"])
+    st, rows, dt, k = timed(cm, st, oracle_actions(RAMP_TICKS, lanes, device))
+    out["ramp55"] = (oracle_fields(rows, st.actors.pos.shape[1]), RAMP_TICKS, 1e3 * dt / RAMP_TICKS, k)
+    return out, rows_of, kernel_counts()
+
+
+def oracle_bars(runs, rows_of, cond):
+    """{oracle: {bar: lanes outside it}} of the closed forms the JAX
+    package's tests set (tests/test_physics.py, tests/test_solver_oracle.py),
+    each lane from its own initial condition."""
+    import numpy as np
+
+    g, h = 9.81, 1.0 / 120.0
+    mu_g = float(np.sqrt(0.2 * 4.25)) * g
+    lanes = len(cond["drop"])
+    out = {}
+    f = runs["flat"][0]
+    john, box = rows_of["flat"]["NPC_JOHN"], rows_of["flat"]["PHYSBOX"]
+    rest = -0.8
+    y = f["actors.pos"][:, :, box, 1]
+    n = 2 * (np.arange(len(y)) + 1.0)
+    expect = (rest + cond["drop"])[None] - g * h * h * (n * (n + 1) / 2)[:, None]
+    airborne = expect > rest + 0.35  # well before the box can touch
+    touched = y < rest + 0.02
+    first = np.where(touched.any(0), touched.argmax(0), len(y))
+    after = np.where(np.arange(len(y))[:, None] >= first[None], y, -np.inf)
+    out["drop"] = {"freefall within 1e-3": int((airborne & (np.abs(y - expect) >= 1e-3)).any(0).sum()),
+                   "touches the floor": int((first == len(y)).sum()),
+                   "no rebound above rest + 0.05": int((after.max(0) >= rest + 0.05).sum()),
+                   "ends within 0.05 of rest": int((np.abs(y[-1] - rest) >= 0.05).sum())}
+    vel = f["actors.vel"][:, :, john]
+    head = np.stack([np.cos(cond["heading"]), np.zeros(lanes), np.sin(cond["heading"])], 1)
+    a = (cond["v0"] - (vel[FLAT_SETTLE + 9] * head).sum(-1)) * 60.0 / 10
+    moving = np.linalg.norm(vel[FLAT_SETTLE + 39], axis=-1) >= 0.15
+    out["kinetic friction"] = {
+        "settled below 0.05 m/s": int((np.linalg.norm(vel[FLAT_SETTLE - 1], axis=-1) >= 0.05).sum()),
+        "deceleration in [0.5, 1.5] mu g": int(((a <= 0.5 * mu_g) | (a >= 1.5 * mu_g)).sum()),
+        "at rest below 0.15 m/s 30 ticks later": int(moving.sum()),
+        FAULT_R: int((moving & diagonal_creep(f["actors.pos"][-1, :, john], vel[-1])).sum())}
+    r = runs["room"][0]
+    pos, grounded = r["pos"], r["on_ground"]
+    fwd = np.stack([-np.sin(cond["yaw"]), np.zeros(lanes), -np.cos(cond["yaw"])], 1)
+    d = pos[59] - pos[29]
+    along = (d * fwd).sum(-1)
+    d[:, 1] = 0.0
+    y0 = pos[59, :, 1]
+    peak = np.maximum(y0, pos[60:121, :, 1].max(0))
+    wall = np.abs(pos[WALL_FROM:, :, [0, 2]]).max(-1)
+    out["player"] = {
+        "rests at y -0.55 within 0.02, grounded": int(((np.abs(pos[29, :, 1] + 0.55) >= 0.02) | ~grounded[29]).sum()),
+        "walk 3.0 +- 0.1 m along forward": int((np.abs(along - 3.0) >= 0.1).sum()),
+        "walk direction within 0.99 of forward": int(((d * fwd).sum(-1) / np.maximum(np.linalg.norm(d, axis=-1), 1e-9)
+                                                      <= 0.99).sum()),
+        "jump apex 0.921 +- 0.06": int((np.abs(peak - y0 - 0.921) >= 0.06).sum()),
+        "lands within 0.02": int((np.abs(pos[150, :, 1] - y0) >= 0.02).sum()),
+        "wall holds (|x|, |z| < 8)": int((wall >= 8.0).any(0).sum()),
+        "reaches a wall (> 7)": int((wall[-1] <= 7.0).sum())}
+    v = runs["ramp55"][0]["actors.vel"][:, :, rows_of["ramp55"]["NPC_JOHN"]]
+    dv = v[89] - v[59]
+    a = np.linalg.norm(dv, axis=-1) * 60.0 / 30
+    tr = np.radians(55.0)
+    a_pred = g * (np.sin(tr) - np.sqrt(0.2 * 4.25) * np.cos(tr))
+    dn = dv / np.maximum(np.linalg.norm(dv, axis=-1, keepdims=True), 1e-12)
+    out["55-degree slide"] = {
+        "acceleration in [0.5, 1.5] g (sin - mu cos)": int(((a <= 0.5 * a_pred) | (a >= 1.5 * a_pred)).sum()),
+        "downhill, no sideways drift": int(((dn[:, 0] <= 0.5) | (dn[:, 1] >= 0.0) | (np.abs(dn[:, 2]) >= 0.2)).sum())}
+    return out
+
+
+def diagonal_creep(pos, vel):
+    """ROADMAP fault r's signature, per lane: a body within 0.3 m (the
+    cylinder's radius and 5 cm) of the box room floor's diagonal edge x = z
+    that moves along it (its horizontal velocity within 10 degrees of the
+    edge; the creep may chatter up and down as well)."""
+    import numpy as np
+
+    along = np.abs(vel[:, 0] + vel[:, 2]) / np.sqrt(2.0) / np.maximum(np.linalg.norm(vel[:, [0, 2]], axis=-1), 1e-9)
+    return (np.abs(pos[:, 0] - pos[:, 2]) / np.sqrt(2.0) < 0.3) & (along > np.cos(np.radians(10.0)))
+
+
+def oracle_outside(bars):
+    """The lanes outside a bar that fail the phase: every count but those
+    of the kinetic friction's at-rest bar that fault r accounts for, lane
+    for lane (a creeping lane outside that bar is fault r's; any other
+    lane outside it fails)."""
+    bad = {o: {b: n for b, n in v.items() if n and b != FAULT_R} for o, v in bars.items()}
+    k = bars["kinetic friction"]
+    if k["at rest below 0.15 m/s 30 ticks later"] == k[FAULT_R]:
+        bad["kinetic friction"].pop("at rest below 0.15 m/s 30 ticks later", None)
+    return {o: v for o, v in bad.items() if v}
+
+
+def wall_contact(pos):
+    """Each lane's first tick of the room rollout with the capsule at a
+    wall (|x| or |z| at least 7.79: radius 0.2 from the wall at 8), from
+    WALL_FROM on; the rollout's length where it never gets there."""
+    import numpy as np
+
+    at = np.abs(pos[WALL_FROM:][..., [0, 2]]).max(-1) >= 7.79
+    return np.where(at.any(0), WALL_FROM + at.argmax(0), len(pos))
+
+
+def oracle_parity(card, cpu, lanes):
+    """The first `lanes` lanes of each card rollout against the CPU port's:
+    player position 2e-3, on_ground equal, actor position and quaternion
+    5e-3, on every tick, but in the room on a lane's ticks from its first
+    wall contact on: pressed into a wall, the capsule meets a step-up test
+    that float rounding decides (ROADMAP fault o), and both sides are then
+    held to the oracle's bars instead (oracle_bars on each). Returns
+    ({oracle map: largest differences}, lanes of the room that part after
+    their wall contact)."""
+    import numpy as np
+
+    out, parted = {}, 0
+    for name, (fc, *_rest) in card.items():
+        fp = cpu[name][0]
+        t = np.arange(len(fp["pos"]))[:, None]
+        held = t < (np.minimum(wall_contact(fc["pos"][:, :lanes]), wall_contact(fp["pos"]))[None]
+                    if name == "room" else len(t))
+        worst = {}
+        for leaf, tol in (("pos", 2e-3), ("actors.pos", 5e-3), ("actors.quat", 5e-3)):
+            dif = np.abs(fc[leaf][:, :lanes] - fp[leaf]).reshape(len(t), lanes, -1).max(-1, initial=0.0)
+            if name == "room" and leaf == "pos":
+                parted = int(((dif > tol) & ~held).any(0).sum())
+            dif = np.where(held, dif, 0.0)
+            worst[leaf] = float(dif.max())
+            if worst[leaf] > tol:
+                tick, lane = np.unravel_index(dif.argmax(), dif.shape)
+                raise AssertionError(f"oracle {name}: {leaf} card vs CPU {worst[leaf]:.3g} > {tol} (tick {tick}, "
+                                     f"lane {lane})")
+        off = (fc["on_ground"][:, :lanes] != fp["on_ground"]) & held
+        if off.any():
+            tick, lane = np.argwhere(off)[0]
+            raise AssertionError(f"oracle {name}: on_ground card vs CPU differs (tick {tick}, lane {lane})")
+        out[name] = worst
+    return out, parted
+
+
+def cull_mode_phase(maps):
+    """arena_lit (K4) and arena_orb (K5) under render/raster.py's CULL_MODE
+    neg, pos, none and neg again, through the render graph: each frame
+    batch equals render_batch_eager under the same mode bit for bit, the
+    route's kernel launches twice a frame batch, both passes of the kernel
+    equal its plain version, and the live rows that reach the kernel are
+    counted; the last neg frames equal the first. Returns {map: {mode:
+    live rows per env (mean, max), T}}."""
+    import torch
+
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts
+    from c_game_engine_tpu_torch.ops import raster_tiles as K4
+    from c_game_engine_tpu_torch.ops import raster_tiles_big as K5
+    from c_game_engine_tpu_torch.profile_render import render_calls
+    from c_game_engine_tpu_torch.render import raster as R
+    from c_game_engine_tpu_torch.utils import counters
+
+    out = {}
+    try:
+        for name, cm, rb, st in maps:
+            big = name == "arena_orb"
+            module, fn, plain, kernel, other = (
+                (K5, "raster_tiles_big", K5.raster_tiles_big_plain, "raster_tiles_big", "raster_tiles") if big else
+                (K4, "raster_tiles_binned", K4.raster_tiles_binned_plain, "raster_tiles", "raster_tiles_big"))
+            frames, out[name] = [], {}
+            for mode in ("neg", "pos", "none", "neg"):
+                R.CULL_MODE = mode
+                counters.reset()
+                got = R.render_batch(rb, cm, st, SIZE, SIZE)
+                torch.cuda.synchronize()
+                counts = kernel_counts()
+                if counts[kernel] != 2 or counts[other]:
+                    raise AssertionError(f"cull mode {mode} {name}: launches {counts}")
+                if not torch.equal(got, R.render_batch_eager(rb, cm, st, SIZE, SIZE)):
+                    raise AssertionError(f"cull mode {mode} {name}: graph frames differ from render_batch_eager")
+                frames.append(got)
+                seen = render_calls(module, fn, rb, cm, st, SIZE)
+                for label, (a, k) in zip(("pass1", "reveal"), seen):
+                    for g, p in zip(getattr(module, fn)(*a, **k), plain(*a, **k)):
+                        if not torch.equal(g, p):
+                            raise AssertionError(f"cull mode {mode} {name} {label}: {fn} differs from its plain "
+                                                 f"version at {int((g != p).sum())} pixels")
+                a = seen[0][0]
+                live = (a[0][:, 10] <= a[0][:, 11]).sum(-1) if big else a[1].sum(-1)
+                out[name][mode] = {"live_rows_mean": float(live.float().mean()), "live_rows_max": int(live.max()),
+                                   "T": int(a[0].shape[-1] if big else a[0].shape[1])}
+                print(f"cull mode {mode} {name}: graph equals render_batch_eager bit for bit, {fn} equals its "
+                      f"plain version on both passes, live rows an env {out[name][mode]['live_rows_mean']:.1f} "
+                      f"(max {out[name][mode]['live_rows_max']}, T {out[name][mode]['T']}); launches {counts}",
+                      flush=True)
+            if not torch.equal(frames[0], frames[3]):
+                raise AssertionError(f"cull mode {name}: neg frames after the round trip differ from the first")
+            if torch.equal(frames[0], frames[1]):
+                raise AssertionError(f"cull mode {name}: pos frames equal neg frames")
+            out[name]["graphs"] = len(rb.graphs)
+    finally:
+        R.CULL_MODE = "neg"
+    return out
+
+
+def oracle_phase(card, render_maps):
+    """The JAX package's closed-form oracles at full width through the tick
+    graph (ORACLE_LANES lanes, each from its own initial condition; maps
+    from tests/torch_oracle_maps.py compiled by the port on the card), the
+    lanes outside each bar (all must be 0), ms a tick and K1/K3 launches a
+    tick of each rollout; ORACLE_CPU_LANES of them against the CPU port
+    under the parity bars; then the cull modes (cull_mode_phase). Returns
+    (figures, launches of the oracle rollouts)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_oracle_maps as M
+
+    t0 = time.perf_counter()
+    paths = M.write_oracle_sources(ROOT / "build" / "oracle_sources")
+    cond = oracle_conditions(ORACLE_LANES)
+    runs, rows_of, counts = oracle_runs(paths, "cuda", cond)
+    ticks = sum(r[1] for r in runs.values())
+    if min(counts["capsule_resolve"], counts["ray_tris"]) < ticks or not all(
+            r[3]["body_contacts"] for name, r in runs.items() if name != "room"):
+        raise AssertionError(f"oracle rollouts of {ticks} ticks: launches {counts}")
+    bars = oracle_bars(runs, rows_of, cond)
+    figures = {"lanes": ORACLE_LANES, "outside": bars, "rollouts": {}}
+    for name, (_, ticks, ms, k) in runs.items():
+        per = {kn: k[kn] / ticks for kn in ("capsule_resolve", "ray_tris", "body_contacts")}
+        figures["rollouts"][name] = {"ticks": ticks, "ms_per_tick": ms, "launches_per_tick": per}
+        print(f"oracle rollout {name}: {ticks} ticks x {ORACLE_LANES} lanes, {ms:.3f} ms a tick (graph, "
+              f"collecting every tick) on {card}; launches a tick K1 {per['capsule_resolve']:.2f}, "
+              f"K2 {per['ray_tris']:.2f}, K3 {per['body_contacts']:.2f}", flush=True)
+    bad = oracle_outside(bars)
+    for oracle, v in bars.items():
+        print(f"oracle {oracle}: lanes outside each bar {v}", flush=True)
+    cpu_cond = {k: v[:ORACLE_CPU_LANES] for k, v in cond.items()}
+    t1 = time.perf_counter()
+    cpu_runs, cpu_rows, _ = oracle_runs(paths, "cpu", cpu_cond)
+    if cpu_rows != rows_of:
+        raise AssertionError(f"oracle maps: actor rows differ between the card and the CPU: {rows_of} {cpu_rows}")
+    cpu_bars = oracle_bars(cpu_runs, rows_of, cpu_cond)
+    figures["cpu_outside"] = {o: {b: n for b, n in v.items() if n} for o, v in cpu_bars.items()}
+    if oracle_outside(cpu_bars):
+        raise AssertionError(f"oracle lanes outside their bars on the CPU: {oracle_outside(cpu_bars)}")
+    figures["parity"], figures["room_lanes_parted_after_wall_contact"] = oracle_parity(runs, cpu_runs,
+                                                                                       ORACLE_CPU_LANES)
+    figures["cpu_s"] = time.perf_counter() - t1
+    print(f"oracle parity: {ORACLE_CPU_LANES} lanes of each rollout on the card match the CPU port on every tick, "
+          f"the room's up to each lane's wall contact ({figures['room_lanes_parted_after_wall_contact']} lanes part "
+          f"after it, ROADMAP fault o; both sides within every bar); largest differences {figures['parity']}; "
+          f"CPU {figures['cpu_s']:.1f} s", flush=True)
+    if bad:
+        raise AssertionError(f"oracle lanes outside their bars: {bad}")
+    figures["cull_modes"] = cull_mode_phase(render_maps)
+    figures["phase_s"] = time.perf_counter() - t0
+    return figures, counts
+
 
 def main() -> int:
     import torch
@@ -1958,6 +2348,9 @@ def main() -> int:
     extras["app"], counts = app_phase(card)
     by_path["app"] = {"counts": counts}
     extras["closing"] = closing_phase(compiled, sources, card)
+    extras["oracles"], counts = oracle_phase(card, (("arena_lit", lit, lit_bundle, lit_state),
+                                                    ("arena_orb", orb, orb_bundle, orb_state)))
+    by_path["oracles"] = {"counts": counts}
     for cm, name in ((arena, "arena"), (bodies_map, "arena_bodies")):
         for (batch, collects), g in cm.graphs.items():
             print(f"graph {name} x {batch}{' (collect)' if collects else ''}: capture {g.capture_s:.2f} s, "

@@ -383,6 +383,30 @@ def test_render_graph_matches_eager(cuda, name):
     assert counters.read(kernel) == before + 2
 
 
+@pytest.mark.parametrize("name", ["arena_lit", "arena_orb"])
+def test_render_graph_follows_cull_mode(cuda, name, monkeypatch):
+    """render/raster.py's CULL_MODE switched between calls (neg, pos, none,
+    neg): each frame batch through the render graph equals
+    render_batch_eager under the same mode bit for bit, so no call replays
+    a capture taken under another mode; the bundle keeps one graph a mode,
+    "pos" changes the frames and the last "neg" frames equal the first."""
+    from c_game_engine_tpu_torch.models.sim import bench_actions, reset_batch, rollout
+    from c_game_engine_tpu_torch.render import raster as R
+    from c_game_engine_tpu_torch.render.bundle import load_render_map
+
+    cm, rb = load_render_map(name, cuda)
+    st = rollout(cm, reset_batch(cm, 8), bench_actions(30, 8, "cuda"))
+    frames = []
+    for mode in ("neg", "pos", "none", "neg"):
+        monkeypatch.setattr(R, "CULL_MODE", mode)
+        got = R.render_batch(rb, cm, st, 256, 256)
+        assert torch.equal(got, R.render_batch_eager(rb, cm, st, 256, 256)), mode
+        frames.append(got)
+    assert len(rb.graphs) == 3
+    assert torch.equal(frames[0], frames[3])
+    assert not torch.equal(frames[0], frames[1])
+
+
 @pytest.mark.parametrize("label", ["xla_100x128", "ssaa2", "aniso4", "wireframe", "hud"])
 def test_render_options_on_card_match_cpu(cuda, label):
     """Each render option on the card (through its graph, itself bit-equal

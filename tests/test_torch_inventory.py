@@ -7,11 +7,27 @@ of the same name at the top level of the port's module of the same path
 where its work is done and why it has no same-named twin. Every public
 JAX function's parameters appear in its counterpart, in the JAX order; a
 counterpart may add `device`, and the extra parameters in EXTRA_PARAMS.
+
+Below the top level:
+  * every method, static method and property of a JAX class is a method
+    of the port's class of the same name (followed through imports), a
+    public one with the JAX parameters as above;
+  * the JAX class's dataclass fields are fields of the port's class, in
+    the JAX order (the port may add fields), with the same defaults;
+  * every module-level UPPER_CASE name of a JAX module (private ones
+    too) is bound at the same path in the port, or has a row in
+    CONSTANT_ROWS; where both values are literals (a tuple or list of
+    literals, also inside np/jnp.array(...)) they are equal, and any other
+    pair of differing expressions has a row in VALUE_ROWS;
+  * the default of every public parameter of a JAX function or method is
+    the port's default of that parameter (a port constant's name counts as
+    its literal value), or the difference has a row in DEFAULT_ROWS.
 """
 
 from __future__ import annotations
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -86,26 +102,228 @@ EXTRA_PARAMS = {
     ("core/state.py", "empty_events"): ({"batch_shape"}, "batched event queues"),
     ("models/sim.py", "make_sim"): ({"search_paths"}, "the asset search paths of compile_map"),
     ("parallel/mesh.py", "make_mesh"): ({"devices"}, "a mesh is a list of torch devices"),
+    ("models/game.py", "GameApp.__init__"): (
+        {"synthetic_assets", "sound_dir", "search_paths"},
+        "the synthetic HUD, UI and sound stand-ins for absent assets, and compile_map's search paths"),
 }
+
+# (JAX module, UPPER_CASE name) -> (where the port keeps it, why the name is
+# not bound at the same path)
+CONSTANT_ROWS = {
+    ("actors/signals.py", "_OUTPUT_PTYPE"): (
+        "actors/signals.py::_output_ptype", "a tensor built once per device: a module-level tensor lives on one device"),
+    ("render/debug_draw.py", "_HEX"): (
+        "render/debug_draw.py::_hex", "the capsule's ring directions, a tuple made a tensor once per device"),
+    ("native.py", "_ROOT"): (
+        "native.py::library_path", "the port builds its own csrc/cge_native.cpp: SOURCE and BUILD_DIR replace the "
+        "repo root and its native/ directory"),
+    ("native.py", "_SO"): (
+        "native.py::library_path", "the library's name carries a hash of the compiler flags and the source, under "
+        "build/torch_native/"),
+}
+
+# (JAX module, UPPER_CASE name) -> why the port's value differs
+VALUE_ROWS = {
+    ("compiler/cache.py", "CACHE_DIR"): (
+        "the port's own cache, .cache/torch_maps, overridden by CGE_TORCH_MAP_CACHE_DIR: the two packages store "
+        "different files (.npz/.json entries, not a pickled tree) and must not read each other's"),
+    ("compiler/cache.py", "_FINGERPRINT_GLOBS"): (
+        "the same globs over the port's package: a change to the port's compiler invalidates the port's cache"),
+    ("compiler/models.py", "DEFAULT_SEARCH_PATHS"): (
+        "the JAX package names the reference checkout's absolute asset directories; the port looks in assets/game "
+        "and assets/engine at the repo root"),
+    ("ops/raster_tiles_big.py", "SUB"): (
+        "CGE_BIG_SUB is a VMEM tuning knob of the TPU kernel, and the frame does not depend on it; K5's subchunk "
+        "is the compile-time 64 of csrc/raster_tiles_big.cu, so the port reads no environment variable"),
+    ("render/debug_draw.py", "_CORNERS"): (
+        "the same 8 corners in the same order, a tuple of floats made a tensor once per device"),
+}
+
+# (JAX module, function, "Class.method" or dataclass "Class", parameter or
+# field) -> why the port's default differs
+DEFAULT_ROWS = {
+    ("render/textures.py", "build_atlas", "blocked_dtype"): (
+        "jnp.bfloat16 -> torch.bfloat16: the same dtype in the port's library"),
+    ("utils/config.py", "RunConfig", "map"): (
+        "arena, the port's committed map: the JAX default is the reference checkout's test.gmap, which is not in "
+        "this repository"),
+    ("models/game.py", "GameApp.__init__", "map_dir"): (
+        "the port's committed maps (models/sim.py::MAPS): the JAX default is the reference checkout's map "
+        "directory, which is not in this repository"),
+}
+
+
+_CONST = re.compile(r"^_?[A-Z][A-Z0-9_]*$")
+
+
+class _Module:
+    """What the checks read of one module: classes (methods as
+    ast.FunctionDef by name; fields as (name, default node or None), in
+    order), functions (ast.FunctionDef by name), UPPER_CASE constants
+    (name -> value node, None where unpacked from a non-tuple), `from X
+    import Y` bindings (name -> (X, level, Y)), and every name bound at the
+    top level (definitions, imports, assignments)."""
+
+    def __init__(self, path: Path):
+        self.path = path
+        self.classes, self.functions, self.constants, self.imports = {}, {}, {}, {}
+        self.bound = set()
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.ClassDef):
+                methods, fields = {}, []
+                for b in node.body:
+                    if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                        methods[b.name] = b
+                    elif isinstance(b, ast.AnnAssign) and isinstance(b.target, ast.Name):
+                        fields.append((b.target.id, b.value))
+                self.classes[node.name] = (methods, fields)
+            elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                self.functions[node.name] = node
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                for t in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                    if isinstance(t, ast.Name):
+                        self.bound.add(t.id)
+                        if _CONST.match(t.id):
+                            self.constants[t.id] = node.value
+                    elif isinstance(t, ast.Tuple):
+                        vals = node.value.elts if isinstance(node.value, ast.Tuple) else [None] * len(t.elts)
+                        for e, v in zip(t.elts, vals):
+                            if isinstance(e, ast.Name):
+                                self.bound.add(e.id)
+                                if _CONST.match(e.id):
+                                    self.constants[e.id] = v
+            elif isinstance(node, (ast.Import, ast.ImportFrom)):
+                for al in node.names:
+                    self.bound.add((al.asname or al.name).split(".")[0])
+                    if isinstance(node, ast.ImportFrom):
+                        self.imports[al.asname or al.name] = (node.module, node.level, al.name)
+        self.bound |= set(self.classes) | set(self.functions)
+
+    def source_of(self, name):
+        """The port module an imported `name` comes from, and its name
+        there; None for a name not imported from the port's package."""
+        if name not in self.imports:
+            return None
+        module, level, orig = self.imports[name]
+        if level:
+            base = self.path.parent
+            for _ in range(level - 1):
+                base = base.parent
+            target = base.joinpath(*(module or "").split("."))
+        elif module and module.split(".")[0] == PORT.name:
+            target = PORT.joinpath(*module.split(".")[1:])
+        else:
+            return None
+        for cand in (target.with_suffix(".py"), target / "__init__.py"):
+            if cand.is_file():
+                return _module(cand), orig
+        return None
+
+    def resolve(self, kind, name):
+        """The class or constant `name` of this module, followed through
+        imports: (found, value); found False where it is neither defined
+        nor imported from the port."""
+        table = self.classes if kind == "class" else self.constants
+        if name in table:
+            return True, table[name]
+        src = self.source_of(name)
+        return src[0].resolve(kind, src[1]) if src else (False, None)
+
+
+_MODULES = {}
+
+
+def _module(path: Path) -> _Module:
+    if path not in _MODULES:
+        _MODULES[path] = _Module(path)
+    return _MODULES[path]
+
+
+def _literal(node):
+    """The value of a literal node as nested tuples (a list is a tuple; the
+    first argument of np/jnp.array or asarray is read through), or a
+    sentinel where the node is not a literal."""
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.args and (
+            node.func.attr in ("array", "asarray")):
+        node = node.args[0]
+    try:
+        value = ast.literal_eval(node)
+    except (ValueError, TypeError, SyntaxError, MemoryError, RecursionError):
+        return _NOT_LITERAL
+
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+    return tup(value)
+
+
+_NOT_LITERAL = object()
+
+
+def _same_value(jax_node, port_node, jax_module, port_module):
+    """Whether two value nodes are equal: as literals of the same type
+    where both read as literals (a module constant's name reads as its
+    value), else as source text."""
+    def value(node, module):
+        if isinstance(node, ast.Name):
+            found, v = module.resolve("constant", node.id)
+            if found and v is not None:
+                node = v
+        return _literal(node)
+
+    a, b = value(jax_node, jax_module), value(port_node, port_module)
+    if a is not _NOT_LITERAL and b is not _NOT_LITERAL:
+        return a == b and type(a) is type(b)
+    return ast.unparse(jax_node) == ast.unparse(port_node)
+
+
+def _defaults(fn):
+    """{parameter: default node} of a function definition."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    out = dict(zip([p.arg for p in pos[len(pos) - len(a.defaults):]], a.defaults))
+    out.update({p.arg: d for p, d in zip(a.kwonlyargs, a.kw_defaults) if d is not None})
+    return out
+
+
+def _params(fn):
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+def _field_default(node):
+    """A dataclass field's default node: the `default=` of a field(...)
+    call, a marker for a default_factory, the node itself otherwise."""
+    if isinstance(node, ast.Call) and isinstance(node.func, (ast.Attribute, ast.Name)) and (
+            getattr(node.func, "attr", getattr(node.func, "id", None)) == "field"):
+        kw = {k.arg: k.value for k in node.keywords}
+        if "default" in kw:
+            return kw["default"]
+        if "default_factory" in kw:
+            return ast.Constant("<default_factory>")
+        return None
+    return node
+
+
+def _default_mismatches(module, name, jax_fn, port_fn, port_module):
+    jax_module = _module(JAX / module)
+    """The public parameters whose JAX default the port's function does not
+    share (a parameter the port lacks is the parameter check's concern)."""
+    port_defaults = _defaults(port_fn)
+    bad = []
+    for p, node in _defaults(jax_fn).items():
+        if p.startswith("_") or p not in _params(port_fn) or (module, name, p) in DEFAULT_ROWS:
+            continue
+        if p not in port_defaults or not _same_value(node, port_defaults[p], jax_module, port_module):
+            bad.append(f"{name}({p}={ast.unparse(node)})")
+    return bad
 
 
 def _top_level(path: Path):
     """({function or class name: parameter names, None for a class}, every
-    name bound at the top level: definitions, imports, assignments)."""
-    tree = ast.parse(path.read_text())
-    defs, bound = {}, set()
-    for node in tree.body:
-        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            a = node.args
-            defs[node.name] = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
-        elif isinstance(node, ast.ClassDef):
-            defs[node.name] = None
-        elif isinstance(node, (ast.Import, ast.ImportFrom)):
-            bound |= {(al.asname or al.name).split(".")[0] for al in node.names}
-        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
-            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
-            bound |= {t.id for t in targets if isinstance(t, ast.Name)}
-    return defs, bound | set(defs)
+    name bound at the top level)."""
+    m = _module(path)
+    return {**{n: _params(f) for n, f in m.functions.items()}, **{n: None for n in m.classes}}, m.bound
 
 
 def _jax_modules():
@@ -138,7 +356,30 @@ def test_the_table_names_no_unported_work():
         else:
             _port_function(target)
     for key in EXTRA_PARAMS:
-        assert key[1] in _top_level(JAX / key[0])[0], key
+        cls, _, method = key[1].partition(".")
+        if method:
+            assert method in _module(JAX / key[0]).classes[cls][0], key
+        else:
+            assert key[1] in _top_level(JAX / key[0])[0], key
+    for key, (target, reason) in CONSTANT_ROWS.items():
+        assert key[1] in _module(JAX / key[0]).constants and reason, key
+        assert key[1] not in _top_level(PORT / key[0])[1], f"{key} is bound in the port now: drop its row"
+        _port_function(target)
+    for key, reason in VALUE_ROWS.items():
+        jax, port = _module(JAX / key[0]), _module(PORT / key[0])
+        assert key[1] in jax.constants and reason, key
+        found, value = port.resolve("constant", key[1])
+        assert found and not _same_value(jax.constants[key[1]], value, jax, port), f"{key}: values agree: drop its row"
+    for (module, name, param), reason in DEFAULT_ROWS.items():
+        jax = _module(JAX / module)
+        cls, _, method = name.partition(".")
+        if method:
+            fn = jax.classes[cls][0][method]
+            assert param in _defaults(fn) and reason, (module, name, param)
+        elif name in jax.classes:
+            assert param in dict(jax.classes[name][1]) and reason, (module, name, param)
+        else:
+            assert param in _defaults(jax.functions[name]) and reason, (module, name, param)
 
 
 @pytest.mark.parametrize("module", _jax_modules())
@@ -172,3 +413,82 @@ def test_every_jax_class_is_a_port_class():
         for name, params in jax_defs.items():
             if params is None:
                 assert name in port_bound, (module, name)
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_jax_constant_is_in_the_port(module):
+    jax = _module(JAX / module)
+    port_path = PORT / module
+    assert port_path.is_file(), module
+    port = _module(port_path)
+    _, port_bound = _top_level(port_path)
+    missing, differ = [], []
+    for name, node in jax.constants.items():
+        if (module, name) in CONSTANT_ROWS:
+            continue
+        if name not in port_bound:
+            missing.append(name)
+            continue
+        found, value = port.resolve("constant", name)
+        if (module, name) in VALUE_ROWS or not found or node is None or value is None:
+            continue
+        if not _same_value(node, value, jax, port):
+            differ.append(f"{name}: {ast.unparse(node)} != {ast.unparse(value)}")
+    assert not missing, f"{module}: the port lacks the constants {missing}"
+    assert not differ, f"{module}: values differ: {differ}"
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_jax_class_has_its_methods_and_fields(module):
+    jax = _module(JAX / module)
+    port = _module(PORT / module)
+    problems = []
+    for cls, (methods, fields) in jax.classes.items():
+        found, port_cls = port.resolve("class", cls)
+        if not found:
+            problems.append(f"{cls}: no port class")
+            continue
+        port_methods, port_fields = port_cls
+        missing = [m for m in methods if m not in port_methods]
+        if missing:
+            problems.append(f"{cls} lacks the methods {missing}")
+        for m, fn in methods.items():
+            if m in port_methods and not m.startswith("_") or m == "__init__" and m in port_methods:
+                _check_params((module, f"{cls}.{m}"), _params(fn), _params(port_methods[m]))
+        names = [f for f, _ in port_fields]
+        it = iter(names)
+        if not all(f in it for f, _ in fields):
+            problems.append(f"{cls}: fields {[f for f, _ in fields]} not in that order in {names}")
+        port_defaults = dict(port_fields)
+        for f, node in fields:
+            if f not in port_defaults or (module, cls, f) in DEFAULT_ROWS:
+                continue
+            a, b = _field_default(node), _field_default(port_defaults[f])
+            if (a is None) != (b is None) or a is not None and not _same_value(a, b, jax, port):
+                problems.append(f"{cls}.{f}: default {ast.unparse(node) if node else None} != "
+                                f"{ast.unparse(port_defaults[f]) if port_defaults[f] else None}")
+    assert not problems, f"{module}: {problems}"
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_public_default_is_the_jax_one(module):
+    jax = _module(JAX / module)
+    port = _module(PORT / module)
+    bad = []
+    for name, fn in jax.functions.items():
+        key = (module, name)
+        if key in COUNTERPARTS:
+            target = COUNTERPARTS[key][0]
+            if name.startswith("_") or target.startswith("csrc/"):
+                continue
+            target_module, target_name = target.split("::")
+            other = _module(PORT / target_module)
+            bad += _default_mismatches(module, name, fn, other.functions[target_name], other)
+        elif name in port.functions:
+            bad += _default_mismatches(module, name, fn, port.functions[name], port)
+    for cls, (methods, _) in jax.classes.items():
+        found, port_cls = port.resolve("class", cls)
+        for m, fn in methods.items():
+            if found and m in port_cls[0]:
+                bad += _default_mismatches(module, f"{cls}.{m}", fn, port_cls[0][m], port)
+    assert not bad, f"{module}: defaults differ from the JAX ones: {bad}"

@@ -258,9 +258,9 @@ def compile_arena_bodies():
                        resolver=stub_resolver())
 
 
-def make_stub_map(actors, tris=None, spawn=(0.0, 0.0, 0.0)):
-    """tests/worldgen.py::make_map compiled with the stub resolver, so
-    physboxes compile without the reference models."""
+def make_stub_map(actors, tris=None, spawn=(0.0, 0.0, 0.0), spawn_yaw=0.0, resolver=None):
+    """tests/worldgen.py::make_map compiled with the stub resolver (or
+    `resolver`), so physboxes compile without the reference models."""
     from c_game_engine_tpu.assets.gmap import GMap, MapCollisionMesh
     from c_game_engine_tpu.compiler.compile import compile_map
     from tests.worldgen import actor, box_room
@@ -275,9 +275,9 @@ def make_stub_map(actors, tris=None, spawn=(0.0, 0.0, 0.0)):
         collision=[MapCollisionMesh(np.zeros(3, np.float32), [box_room() if tris is None else tris])],
         lightmap=np.ones((1, 1, 4), np.float32),
         point_lights=np.zeros((0, 9), np.float32),
-        player_spawn=actor("player", spawn, (0, 0, 0)),
+        player_spawn=actor("player", spawn, (0, spawn_yaw, 0)),
     )
-    return compile_map(gmap, name="synthetic", resolver=stub_resolver())
+    return compile_map(gmap, name="synthetic", resolver=resolver or stub_resolver())
 
 
 def compile_arena():
