@@ -2,12 +2,12 @@
 (counterpart of c_game_engine_tpu/parallel/mesh.py).
 
 As in the JAX package, per-env state never crosses devices while stepping
-and only the metrics are reduced, so the port needs no collective: a mesh
-is an ordered list of devices, the env axis is split into equal contiguous
-shards, one per entry, and each shard steps through the port's own
-`rollout` on its device (the map's tick graph on a card, the eager loop on
-the CPU). The same device may appear more than once; a one-card machine
-or the CPU then checks the split.
+and only the metrics are reduced, so within a process the port needs no
+collective: a mesh is an ordered list of devices, the env axis is split
+into equal contiguous shards, one per entry, and each shard steps through
+the port's own `rollout` on its device (the map's tick graph on a card,
+the eager loop on the CPU). The same device may appear more than once; a
+one-card machine or the CPU then checks the split.
 
 A mesh of more than one entry takes shards of a multiple of 128 envs
 only, and `shard_sim` refuses any other: the capsule kernel's candidate
@@ -16,6 +16,19 @@ the plain CPU version copies), so a shard boundary inside a block would
 change results on the card and on the CPU alike. Such shards give the
 unsharded result bit for bit. On several cards each shard's capture and
 replay run under its card's `torch.cuda.device`.
+
+In a process group (parallel/distributed.py: one process per card, or per
+host) the same calls work across processes. `make_mesh()` gives this
+process's entries (its card), `shard_sim` takes the global batch and
+builds only this process's envs (`distributed.env_range`), split over its
+entries, and the 128-lane rule holds for every shard of every process.
+Per-env inputs (`step_fn`'s actions, `split`, `sharded_rollout`'s
+`actions`) are this process's envs: each process computes its envs'
+actions from the global env index, nothing is broadcast. Still nothing
+crosses processes while stepping: `sharded_rollout` gathers only the
+metric columns (distributed.process_allgather, host tensors over gloo)
+and reduces them as one process does, so its metrics equal the
+one-process run's bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import torch
 from c_game_engine_tpu_torch.core.actions import Actions
 from c_game_engine_tpu_torch.core.state import tree_leaves, tree_map
 from c_game_engine_tpu_torch.models.sim import reset_batch, rollout
+from c_game_engine_tpu_torch.parallel import distributed
 
 ENV_AXIS = "env"
 LANE_BLOCK = 128  # the capsule kernel's lane block (ops/capsule_resolve.py::BLK)
@@ -34,8 +48,11 @@ LANE_BLOCK = 128  # the capsule kernel's lane block (ops/capsule_resolve.py::BLK
 
 def make_mesh(n_devices: int | None = None, devices=None) -> list[torch.device]:
     """The mesh's devices in order: `devices` (the same device may repeat),
-    else every CUDA card; the first `n_devices` of them when given."""
-    if devices is None:
+    else this process's device in a process group, else every CUDA card;
+    the first `n_devices` of them when given."""
+    if devices is None and distributed.process_count() > 1:
+        devices = [distributed.local_device()]
+    elif devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devs = [torch.device(d) for d in devices]
     # "cuda" names the current card, as a tensor's device does
@@ -54,17 +71,20 @@ def _on(device):
 
 
 def shard_sim(cmap, batch: int, mesh):
-    """Fresh batched state with the env axis split over the mesh (shards of
-    a multiple of LANE_BLOCK envs on a mesh of several entries). Returns
-    (cmaps, states, step_fn): the map on each entry's device (one copy per
-    distinct device), each entry's [batch / len(mesh)] state, and
-    step_fn(states, actions) -> states, one tick of every shard for a [B]
-    action batch."""
-    n = len(mesh)
+    """Fresh batched state with the env axis of a global batch of `batch`
+    split over the mesh of every process (shards of a multiple of
+    LANE_BLOCK envs where there are several). Returns (cmaps, states,
+    step_fn): the map on each local entry's device (one copy per distinct
+    device), each local entry's [batch / (process_count() * len(mesh))]
+    state, and step_fn(states, actions) -> states, one tick of every local
+    shard for this process's [batch / process_count()] action batch."""
+    procs = distributed.process_count()
+    n = procs * len(mesh)
+    where = f"a mesh of {len(mesh)} entries" + (f" in each of {procs} processes" if procs > 1 else "")
     if batch % n:
-        raise ValueError(f"batch {batch} must divide the mesh of {n}")
+        raise ValueError(f"batch {batch} must divide {where}")
     if n > 1 and (batch // n) % LANE_BLOCK:
-        raise ValueError(f"a shard of {batch // n} envs: a mesh of {n} entries takes shards of a multiple of "
+        raise ValueError(f"a shard of {batch // n} envs: {where} takes shards of a multiple of "
                          f"{LANE_BLOCK} envs, since the capsule kernel's candidate set is per {LANE_BLOCK}-lane "
                          "block (fault f, ROADMAP §3) and a shard boundary inside a block changes results")
     per_device = {}
@@ -113,16 +133,23 @@ def gather_states(states, device=None):
 
 
 def sharded_rollout(cmap, mesh, batch: int, n_ticks: int, actions: Actions | None = None):
-    """n_ticks of a fresh sharded batch, each env repeating its entry of the
-    [B] `actions` (zeros by default) every tick. Returns (final state on the
-    first entry's device, metrics reduced over the whole batch)."""
+    """n_ticks of a fresh sharded global batch of `batch` envs, each env
+    repeating its entry of this process's [batch / process_count()]
+    `actions` (zeros by default) every tick. Returns (this process's final
+    state on the first entry's device, metrics reduced over the global
+    batch)."""
     cmaps, states, _ = shard_sim(cmap, batch, mesh)
     if actions is None:
-        actions = Actions.zeros((batch,), device=mesh[0])
+        actions = Actions.zeros((len(distributed.env_range(batch)),), device=mesh[0])
     final = gather_states(rollout_shards(cmaps, states, [_repeat(a, n_ticks) for a in split(actions, mesh)]))
+    pos, coins = final.player.pos, final.save.coins
+    if distributed.process_count() > 1:
+        # the global columns on this process's device, reduced by the same
+        # ops on the same shapes as in one process: the same bits
+        pos, coins = (distributed.process_allgather(x).to(x.device) for x in (pos, coins))
     metrics = {
-        "mean_player_y": final.player.pos[:, 1].mean(),
-        "mean_coins": final.save.coins.float().mean(),
+        "mean_player_y": pos[:, 1].mean(),
+        "mean_coins": coins.float().mean(),
         "ticks": final.tick[0],
     }
     return final, metrics

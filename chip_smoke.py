@@ -72,7 +72,7 @@ Phases (any failure exits non-zero and prints no result line):
      ticks of the bench.py stream (hold W, look += 0.01), first on arena
      (K1, K2), then on arena_bodies (K1, K2, K3; K3 launches once on each
      tick on which some body is awake, the rigid-body step's gate); then
-     240 replays of arena and 8 of arena_bodies under torch.profiler: K1,
+     60 replays of arena and 8 of arena_bodies under torch.profiler: K1,
      K2 and K3 launches counted in the trace against the ticks and gate
      counts, and no host sync and no Memcpy HtoD in the replays; then
      the render path: compile_map + build_render_bundle of arena_lit ->
@@ -91,10 +91,20 @@ Phases (any failure exits non-zero and prints no result line):
      envs x 60 ticks, over make_mesh() and over two entries of the one
      card: each equal to the unsharded rollout bit for bit, steps/s of
      both, 0 host syncs between the shards' launches, the kernels'
-     launches counted); the action stream phase (240 ticks x 4096 envs
-     recorded with core/actions_io.py's ActionRecorder, saved, loaded onto
-     the card unchanged, its replay equal to the original rollout bit for
-     bit);
+     launches counted); the multi-process phase (`multiprocess_phase`:
+     parallel/worker.py in two processes of a gloo group on the one card,
+     arena at 4096 global envs for 120 + 120 ticks and arena_bodies for
+     30 + 30 of long_run's per-env stream, a distributed checkpoint
+     between the halves that process 0 alone writes and a resume in a
+     fresh group; each half equal to the one-process rollout through the
+     tick graph bit for bit, K1-K3 launches of each process against the
+     one-process counts, steps/s of each process, of both together and of
+     one process, checkpoint seconds; then long_run under
+     torch.distributed.run with 2 processes, 40 ticks x 256 envs in
+     segments of 20, its resume proof passing); the action stream phase
+     (240 ticks x 4096 envs recorded with core/actions_io.py's
+     ActionRecorder, saved, loaded onto the card unchanged, its replay
+     equal to the original rollout bit for bit);
   8. the entry points: a c_game_engine_tpu_torch.long_run resume proof
      over make_mesh() (40 ticks of 256 envs in segments of 20, bitwise),
      one c_game_engine_tpu_torch.bench call, one entry() step,
@@ -200,6 +210,11 @@ BATCH, TICKS = 4096, 240
 # still (a replay traces about 31,600 kernels, and a 24-replay window lost
 # events)
 BODIES_EAGER_TICKS, PROFILE_BODIES_TICKS = 60, 8
+# arena's profiled window: a replay traces about 3,500 kernels, and a
+# window of 240 replays (about 840,000 kernel records) held one replay's
+# K1 and K2 launches fewer than the device counts in one run; 60 replays
+# trace about as many records as arena_bodies' 8
+PROFILE_ARENA_TICKS = 60
 HALLS_EVERY = 101  # halls.json: every 101st surface is baked on the CPU too
 LONG_RUN = ("arena", 40, 20, 256)  # map, ticks, segment, envs
 DEMO = ("arena_lit", 2, 30)  # map, frames, ticks
@@ -209,6 +224,14 @@ MIX_TICKS, MIX_CHECK_ENVS = 60, 64
 # the mesh phase's cells: map, envs, ticks (shards of 2048 and of 256 envs,
 # multiples of K1's 128-lane block)
 MESH = (("arena", 4096, 240), ("arena_bodies", 512, 60))
+# the multi-process phase: parallel/worker.py in PROCESSES processes on the
+# one card, each cell's start and resume half (map, global envs, ticks a
+# half); long_run under torch.distributed.run (map, ticks, segment, envs);
+# the longest wait on one launch of the processes
+MULTIPROCESS = (("arena", 4096, 120), ("arena_bodies", 4096, 30))
+PROCESSES = 2
+MP_LONG_RUN = ("arena", 40, 20, 256)
+MP_LAUNCH_S = 300
 # rollout_collect on the graph: more ticks than the graph's action stream
 # holds (models/graph.py::CAP, 240), so it runs in two chunks
 COLLECT_BATCH, COLLECT_TICKS = 256, 250
@@ -1210,6 +1233,163 @@ def action_stream_phase(arena):
           f"loaded onto the card ({load_s:.3f} s) unchanged; its rollout equals the original's bit for bit "
           f"({n} leaves); launches {counts}", flush=True)
     return {"ticks": TICKS, "envs": BATCH, "bytes": size, "save_s": save_s, "load_s": load_s}, counts
+
+
+def _launch(cmds, env=None, limit=MP_LAUNCH_S):
+    """Run the commands at once from the repo root: [(rc, stdout, stderr)].
+    Each runs in a session of its own, which is killed whole (torchrun's
+    workers too) when its wait ends, so nothing started here outlives the
+    call; a command still running after `limit` seconds fails."""
+    import signal
+    import subprocess
+
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for c in cmds]
+    out, deadline = [], time.monotonic() + limit
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            out.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.communicate()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multiprocess_phase(card):
+    """The multi-process tier on the one card (parallel/distributed.py):
+    for each MULTIPROCESS cell, parallel/worker.py in PROCESSES processes
+    of a gloo group, `start` (a fresh global batch, the ticks of
+    long_run.walk_and_turn's per-env stream through sharded_rollout, a
+    distributed checkpoint that process 0 writes) and then, in a fresh
+    group, `resume` (each process restores its envs of the checkpoint and
+    steps the ticks again; the gathered final state written the same way).
+    Each half is held bit for bit, every leaf, to the one-process rollout
+    of the global batch through the tick graph, the start half's metrics
+    to the one-process reduction; each process's kernel launches (counts
+    reset after its graph's capture) against the one-process counts: no
+    process launches a kernel more often than one process does, and the
+    processes together launch it at least as often and at most PROCESSES
+    times as often (K2 every tick; K1's stick launch and K3 are gated per
+    process); only process 0 writes a file. Then long_run under
+    `torch.distributed.run --standalone --nproc_per_node PROCESSES`
+    (MP_LONG_RUN), its resume proof passing. A process that fails fails
+    the phase. Returns (figures, {path: counts})."""
+    import numpy as np
+    import torch
+
+    from c_game_engine_tpu_torch.long_run import walk_and_turn
+    from c_game_engine_tpu_torch.models.graph import tick_graph
+    from c_game_engine_tpu_torch.models.graph_check import kernel_counts, same_leaves
+    from c_game_engine_tpu_torch.models.sim import load_named_map, reset_batch, rollout
+    from c_game_engine_tpu_torch.utils import counters
+    from c_game_engine_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "multiprocess"
+    shutil.rmtree(root, ignore_errors=True)
+    figures, paths = {}, {}
+    for name, batch, ticks in MULTIPROCESS:
+        out = root / name
+        recs, launch_s = {}, {}
+        for phase in ("start", "resume"):
+            port = _free_port()
+            cmds = [[sys.executable, "-m", "c_game_engine_tpu_torch.parallel.worker", phase, str(out),
+                     "--coordinator", f"127.0.0.1:{port}", "--processes", str(PROCESSES), "--rank", str(r),
+                     "--map", name, "--batch", str(batch), "--ticks", str(ticks)] for r in range(PROCESSES)]
+            t0 = time.perf_counter()
+            results = _launch(cmds)
+            launch_s[phase] = time.perf_counter() - t0
+            for r, (rc, o, e) in enumerate(results):
+                if rc != 0 or not o.strip().endswith("WORKER_OK"):
+                    raise AssertionError(f"multi-process {name} {phase}: process {r} exited {rc}:\n{o[-2000:]}\n"
+                                         f"{e[-4000:]}")
+            recs[phase] = [json.loads((out / f"rank{r}_{phase}.json").read_text()) for r in range(PROCESSES)]
+
+        # one process, the same global batch and stream, through the tick graph
+        cm = load_named_map(name, "cuda")
+        stream = walk_and_turn(ticks, batch, "cuda")
+        state = reset_batch(cm, batch)
+        tick_graph(cm, state)
+        cell = {"envs": batch, "ticks_a_half": ticks, "processes": PROCESSES}
+        total = {k: 0 for k in KERNELS}
+        for phase, ck in (("start", "ckpt.npz"), ("resume", "final.npz")):
+            torch.cuda.synchronize()
+            counters.reset()
+            t0 = time.perf_counter()
+            state = rollout(cm, state, stream)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            one = kernel_counts()
+            n = same_leaves(f"multi-process {name} {phase}", state, load_checkpoint(out / ck, state))
+            pos = np.load(out / f"pos_{phase}.npy")
+            if not np.array_equal(pos, state.player.pos.cpu().numpy()):
+                raise AssertionError(f"multi-process {name} {phase}: the gathered positions differ")
+            rs = recs[phase]
+            if phase == "start":
+                want = {"mean_player_y": float(state.player.pos[:, 1].mean()),
+                        "mean_coins": float(state.save.coins.float().mean()), "ticks": float(state.tick[0])}
+                if any(r["metrics"] != want for r in rs):
+                    raise AssertionError(f"multi-process {name}: metrics {[r['metrics'] for r in rs]}, one process "
+                                         f"{want}")
+            ranks = [r["launches"] for r in rs]
+            summed = {k: sum(c[k] for c in ranks) for k in KERNELS}
+            gated = ("capsule_resolve", "ray_tris") + (("body_contacts",) if name == "arena_bodies" else ())
+            bad = [k for k in gated if not max(c[k] for c in ranks) <= one[k] <= summed[k] <= PROCESSES * one[k]]
+            if bad or any(c["capsule_resolve"] < ticks or c["ray_tris"] < ticks for c in ranks) or any(
+                    c[k] for c in ranks for k in KERNELS if k not in gated):
+                raise AssertionError(f"multi-process {name} {phase}: launches {ranks}, one process {one}")
+            writers = [r["rank"] for r in rs if r["writes"]]
+            if writers != [0] or len({r["checkpoint_mtime_ns"] for r in rs}) != 1:
+                raise AssertionError(f"multi-process {name} {phase}: files written by processes {writers}, "
+                                     f"checkpoint mtimes {[r['checkpoint_mtime_ns'] for r in rs]}")
+            for k in KERNELS:
+                total[k] += summed[k]
+            together = batch * ticks / (max(r["wall"][1] for r in rs) - min(r["wall"][0] for r in rs))
+            cell[phase] = {
+                "steps_per_s_by_process": [r["steps_per_s"] for r in rs], "steps_per_s_together": together,
+                "one_process_steps_per_s": batch * ticks / one_s, "launches_by_process": ranks,
+                "one_process_launches": one, "capture_s_by_process": [r["capture_s"] for r in rs],
+                "checkpoint_s_by_process": [r["checkpoint_s"] for r in rs], "launch_s": launch_s[phase],
+                "leaves": n}
+            print(f"multi-process {name} {phase}: {PROCESSES} processes x {batch // PROCESSES} envs x {ticks} ticks "
+                  f"on one card equal one process's {batch} envs bit for bit ({n} leaves"
+                  f"{', and its metrics' if phase == 'start' else ''}); steps/s "
+                  f"{[round(r['steps_per_s'], 1) for r in rs]} by process, {together:.1f} together, "
+                  f"{batch * ticks / one_s:.1f} in one process on {card}; checkpoint gather + write "
+                  f"{[round(r['checkpoint_s'], 3) for r in rs]} s by process (written by process 0 only); "
+                  f"launch {launch_s[phase]:.1f} s; launches {ranks}, one process {one}", flush=True)
+        paths[f"multiprocess_{name}"] = {"counts": total}
+        figures[name] = cell
+
+    name, ticks, segment, envs = MP_LONG_RUN
+    env = dict(os.environ, CGE_BATCH=str(envs), CGE_CKDIR=str(root / "long_run"), PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    ((rc, o, e),) = _launch([[sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                              str(PROCESSES), "-m", "c_game_engine_tpu_torch.long_run", name, str(ticks),
+                              str(segment)]], env)
+    lr_s = time.perf_counter() - t0
+    if rc or "BITWISE equal" not in o or f"in each of {PROCESSES} processes" not in o:
+        raise AssertionError(f"long_run under torch.distributed.run exited {rc}:\n{o[-2000:]}\n{e[-4000:]}")
+    for line in o.strip().splitlines():
+        print(f"long_run x {PROCESSES} processes: {line}", flush=True)
+    figures["long_run"] = {"map": name, "ticks": ticks, "segment": segment, "envs": envs, "processes": PROCESSES,
+                           "seconds": lr_s}
+    figures["phase_s"] = time.perf_counter() - t_phase
+    print(f"multi-process phase: {figures['phase_s']:.1f} s", flush=True)
+    return figures, paths
 
 
 def entry_points_phase(card):
@@ -2317,7 +2497,7 @@ def main() -> int:
     print(f"main path arena_bodies: {TICKS} ticks x {BATCH} envs in {dt:.3f} s = {steps:.1f} steps/s "
           f"(graph; eager {graphs['arena_bodies']['eager_steps_per_s']:.1f}) on {card}; launches {counts}; "
           f"body gate open on {gate} ticks; final player pos {state.player.pos[0].tolist()}", flush=True)
-    profiles = {"arena": profile_phase("arena", arena, TICKS),
+    profiles = {"arena": profile_phase("arena", arena, PROFILE_ARENA_TICKS),
                 "arena_bodies": profile_phase("arena_bodies", bodies_map, PROFILE_BODIES_TICKS)}
 
     render_graphs = {}
@@ -2341,6 +2521,8 @@ def main() -> int:
     audio = audio_phase(arena, card)
     mesh, mesh_paths = mesh_phase({"arena": arena, "arena_bodies": bodies_map}, card)
     by_path.update(mesh_paths)
+    multiprocess, mp_paths = multiprocess_phase(card)
+    by_path.update(mp_paths)
     actions, counts = action_stream_phase(arena)
     by_path["action_replay"] = {"counts": counts}
     extras, counts = entry_points_phase(card)
@@ -2387,7 +2569,8 @@ def main() -> int:
                           p: {k: v[k] for k in ("host_syncs_per_tick", "memcpy_htod_per_tick", "memcpy_dtoh_per_tick",
                                                 "device_ms_per_tick", "wall_ms_per_tick", "busy_share",
                                                 "host_per_tick")} for p, v in profiles.items()},
-                      "audio": audio, "mesh": mesh, "action_stream": actions, "compiler": compiler, **extras}))
+                      "audio": audio, "mesh": mesh, "multiprocess": multiprocess, "action_stream": actions,
+                      "compiler": compiler, **extras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

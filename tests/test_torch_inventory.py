@@ -83,7 +83,8 @@ COUNTERPARTS = {
     ("core/state.py", "_empty_audio"): (
         "audio/mixer.py::empty_audio", "inlined: reset() calls empty_audio(device) directly"),
     ("utils/checkpoint.py", "_save_host"): (
-        "utils/checkpoint.py::save_checkpoint", "inlined: one host writer (an .npz, no orbax, no pickle)"),
+        "utils/checkpoint.py::_write", "the one host writer (an .npz, no orbax, no pickle): save_checkpoint calls it "
+        "in one process, and in process 0 of a group with the gathered state"),
     ("ui/stack.py", "_text_len"): (
         "ui/stack.py::ui_process", "inlined: (text >= 0).sum per row, batched"),
     ("compiler/sectors.py", "_bbox_overlap"): (
@@ -492,3 +493,72 @@ def test_every_public_default_is_the_jax_one(module):
             if found and m in port_cls[0]:
                 bad += _default_mismatches(module, f"{cls}.{m}", fn, port_cls[0][m], port)
     assert not bad, f"{module}: defaults differ from the JAX ones: {bad}"
+
+
+# what makes a JAX function multi-process: a call of these in its body
+MULTIPROCESS_CALLS = ({"process_count", "process_index"}, "multihost_utils")
+DISTRIBUTED = PORT / "parallel" / "distributed.py"
+
+
+def _multiprocess_functions():
+    """(JAX module, function) of every top-level JAX function whose body
+    calls jax.process_count, jax.process_index or multihost_utils."""
+    attrs, name = MULTIPROCESS_CALLS
+    found = []
+    for module in _jax_modules():
+        for fn_name, fn in _module(JAX / module).functions.items():
+            if any(isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name) and n.value.id == "jax"
+                   and n.attr in attrs or isinstance(n, ast.Name) and n.id == name for n in ast.walk(fn)):
+                found.append((module, fn_name))
+    return found
+
+
+def _imports_distributed(path: Path, node) -> bool:
+    """Whether an import node of the module at `path` binds
+    parallel/distributed.py or a name of it."""
+    if not isinstance(node, ast.ImportFrom):
+        return False
+    if node.level:
+        base = path.parent
+        for _ in range(node.level - 1):
+            base = base.parent
+        target = base.joinpath(*(node.module or "").split("."))
+    elif node.module and node.module.split(".")[0] == PORT.name:
+        target = PORT.joinpath(*node.module.split(".")[1:])
+    else:
+        return False
+    return target.with_suffix(".py") == DISTRIBUTED or any(
+        target / f"{al.name}.py" == DISTRIBUTED for al in node.names)
+
+
+def _reaches_distributed(path: Path, fn_name: str, seen=()) -> bool:
+    """Whether the port function `fn_name` of the module at `path` uses a
+    name bound to parallel/distributed.py, directly or through a function
+    of its module it calls."""
+    m = _module(path)
+    fn = m.functions[fn_name]
+    tree = ast.parse(path.read_text())
+    bound = set()
+    for node in tree.body + list(ast.walk(fn)):
+        if _imports_distributed(path, node):
+            bound |= {al.asname or al.name for al in node.names}
+    used = {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)}
+    if used & bound:
+        return True
+    return any(_reaches_distributed(path, other, (*seen, fn_name))
+               for other in used & set(m.functions) if other not in seen and other != fn_name)
+
+
+def test_multiprocess_functions_reach_the_process_group():
+    """Every JAX function that acts on the multi-process case has a
+    counterpart that reaches the port's process group
+    (parallel/distributed.py): a name match cannot see a missing branch."""
+    found = _multiprocess_functions()
+    assert ("utils/checkpoint.py", "save_checkpoint") in found, found
+    missing = []
+    for module, name in found:
+        target = COUNTERPARTS.get((module, name), (f"{module}::{name}",))[0]
+        t_module, t_name = target.split("::")
+        if not _reaches_distributed(PORT / t_module, t_name):
+            missing.append(f"{module}::{name} -> {target}")
+    assert not missing, f"these counterparts never reach parallel/distributed.py: {missing}"

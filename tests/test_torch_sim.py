@@ -139,13 +139,13 @@ def test_long_run_resume_proof_on_cpu(tmp_path, monkeypatch):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["ck_00000002.npz", "ck_00000004.npz"]
     assert "BITWISE equal" in lines[-2]
     # the proof is not vacuous: a restore one ulp off in one leaf fails it
-    load = long_run.load_checkpoint
+    load = long_run.load_checkpoint_shard
 
     def nudged(path, like):
         st = load(path, like)
         return st.replace(player=st.player.replace(yaw=torch.nextafter(st.player.yaw, torch.tensor(9.0))))
 
-    monkeypatch.setattr(long_run, "load_checkpoint", nudged)
+    monkeypatch.setattr(long_run, "load_checkpoint_shard", nudged)
     with pytest.raises(AssertionError, match="player.yaw"):
         long_run.run("arena", 4, 2, B, "cpu", tmp_path / "again", log=lines.append)
 
